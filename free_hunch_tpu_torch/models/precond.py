@@ -1,0 +1,93 @@
+"""EDM-style sigma parameterisation around the raw UNet.
+
+Counterpart of ``IDDPMLinearPrecond`` in ``free_hunch_tpu/models/precond.py``
+(:66-158). Denoiser contract, consumed by the guidance mechanisms:
+    D(x, sigma) -> (x0_mean, x0_var)
+with D(x, sigma) = clip(x - sigma F(c_in x, c_noise), -1, 1) and the
+learned-sigma channel mapped to an x0 posterior variance (Peng et al. Eq. 22).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _linear_sigma_grid(beta_min: float, beta_max: float, M: int) -> np.ndarray:
+    """u[j] = sigma of reversed index j for the linear-beta DDPM schedule,
+    with u[M] = 0 appended as the terminal zero-noise level."""
+    betas = np.concatenate([[0.0], np.linspace(beta_min, beta_max, M)])
+    alpha_bar = np.cumprod(1.0 - betas)[::-1]
+    return np.sqrt((1.0 - alpha_bar) / alpha_bar)
+
+
+class IDDPMLinearPrecond(nn.Module):
+    """Linear-beta iDDPM preconditioner. ``round_sigma`` has a host numpy
+    branch (schedule setup; equal to the JAX package's bit for bit) and a
+    tensor branch. ``forward(x, sigma)`` takes sigma as a host float or a
+    tensor."""
+
+    def __init__(self, model: nn.Module, img_resolution: int, img_channels: int,
+                 label_dim: int = 0, beta_min: float = 0.0001, beta_max: float = 0.02,
+                 M: int = 1000):
+        super().__init__()
+        self.model = model
+        self.img_resolution = img_resolution
+        self.img_channels = img_channels
+        self.label_dim = label_dim
+        self.M = M
+        u = _linear_sigma_grid(beta_min, beta_max, M)
+        self.u_np = np.asarray(u, np.float32)
+        self.sigma_min = float(u[M - 1])
+        self.sigma_max = float(u[0])
+        betas = np.concatenate([[0.0], np.linspace(beta_min, beta_max, M)])
+        alphas_cumprod = np.cumprod(1.0 - betas)
+        alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+        with np.errstate(invalid="ignore", divide="ignore"):
+            # index 0 (the prepended zero-beta level) is 0/0 and never used
+            post_var = betas * (1.0 - alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+            post_c1 = betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)
+        self.register_buffer("u", torch.as_tensor(self.u_np), persistent=False)
+        self.register_buffer("posterior_variance", torch.as_tensor(
+            np.nan_to_num(post_var).astype(np.float32)), persistent=False)
+        self.register_buffer("posterior_mean_coef1", torch.as_tensor(
+            np.nan_to_num(post_c1).astype(np.float32)), persistent=False)
+
+    def round_sigma(self, sigma, return_index: bool = False):
+        """Snap sigma to the nearest grid value (first index on ties)."""
+        if not isinstance(sigma, torch.Tensor):
+            s = np.asarray(sigma, np.float32)
+            idx = np.argmin(np.abs(s.reshape(-1)[:, None] - self.u_np[None, :]), axis=1)
+            return (idx if return_index else self.u_np[idx]).reshape(np.shape(sigma))
+        s = sigma.float()
+        idx = torch.argmin(torch.abs(s.reshape(-1)[:, None] - self.u[None, :]), dim=1)
+        return (idx if return_index else self.u[idx]).reshape(s.shape)
+
+    def forward(self, x: torch.Tensor, sigma, y: Optional[torch.Tensor] = None):
+        """D(x, sigma) -> (x0_mean in [-1, 1], x0_var); x is (N, C, H, W)."""
+        x = x.float()
+        n = x.shape[0]
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma.float().reshape(-1).broadcast_to((n,)).to(x.device)
+            idx = self.round_sigma(sigma, return_index=True)
+        else:
+            s_host = np.broadcast_to(np.asarray(sigma, np.float32).reshape(-1), (n,)).copy()
+            idx = torch.as_tensor(self.round_sigma(s_host, return_index=True),
+                                  device=x.device)
+            sigma = torch.as_tensor(s_host, device=x.device)
+        if self.label_dim and y is None:
+            y = torch.zeros((n,), dtype=torch.int64, device=x.device)
+        c_out = -sigma
+        c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
+        c_noise = (self.M - idx).float()
+        out = self.model(c_in[:, None, None, None] * x, c_noise, y=y)
+        F_x = out[:, :self.img_channels]
+        v = out[:, self.img_channels:]
+        t = c_noise.long()
+        pv = self.posterior_variance[t][:, None, None, None]
+        pm1 = self.posterior_mean_coef1[t][:, None, None, None]
+        x0_var = torch.clamp((v - pv) / torch.square(pm1), min=1e-6)
+        D_x = x + c_out[:, None, None, None] * F_x.float()
+        return torch.clamp(D_x, -1.0, 1.0), x0_var

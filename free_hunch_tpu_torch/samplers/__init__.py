@@ -1,0 +1,3 @@
+from free_hunch_tpu_torch.samplers.edm import (  # noqa: F401
+    get_sigma_steps, prepare_schedule, required_cov_capacity, sample_loop,
+)
