@@ -7,20 +7,29 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, the TF32
-   flags the port sets, and the build of every kernel from ``csrc/``.
+   flags the port sets, and the build of every kernel from ``csrc/`` (one
+   ``nvcc`` per source, all started together).
 2. kernels: every hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the main path gives it, with times, the bound
-   and the library call of the same function (timed only, never used).
-3. reference: a 32 px Free Hunch slice on the card (kernels) against the
-   same slice on the CPU (plain versions), same weights and inputs.
-4. slice: the ``bench.py`` protocol in the port. Guided 256x256
+   the card, at every distinct shape a main path gives it, with times, the
+   bound and the library call of the same function (timed only, never
+   used): K1 (GroupNorm+SiLU) at one bf16 forward's shapes, K2 (GroupNorm+
+   affine+SiLU+int8 quantise) and K3 (int8 convolution) at one fused-int8
+   forward's shapes.
+3. reference: 32 px Free Hunch slices on the card (kernels) against the same
+   slices on the CPU (plain versions), same weights and inputs: the f32
+   torso, the fused int8 torso, and the static int8 torso calibrated on each
+   side; each int8 module also on its own, on the card's inputs.
+4. slices: the ``bench.py`` protocol in the port. Guided 256x256
    gaussian-blur deblurring with Free Hunch (``online_covariance``,
    DCT-diagonal prior, tailored CG recycling the previous stage's solution,
    vjp guidance gradient) through the full-width, full-depth 256 px ADM
-   UNet with seeded random weights, bf16 torso with remat, EDM Heun. The
-   kernels' launch counters are zeroed just before the first run and read
-   just after it. One more run under ``torch.profiler`` gives the device
-   time by kernel family and the device's idle share.
+   UNet with seeded random weights and remat, EDM Heun: first on the bf16
+   torso, then on the int8 torso with the fused GroupNorm route
+   (``quant="int8"``, ``fused_gn_quant=True``). For each, the kernels'
+   launch counters are zeroed just before its first run and read just after
+   it, and checked against the module calls counted by hooks; one more run
+   under ``torch.profiler`` gives the device time by kernel family and the
+   device's idle share.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -32,6 +41,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -43,25 +53,41 @@ import torch.nn.functional as F
 import free_hunch_tpu_torch as fht
 from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism
 from free_hunch_tpu_torch.models import loading
+from free_hunch_tpu_torch.models.calibrate import calibrate_qscales
+from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
 from free_hunch_tpu_torch.models.unet import GroupNorm32, ResBlock, create_model
-from free_hunch_tpu_torch.operators import get_operator
+from free_hunch_tpu_torch.operators import assets, get_operator
 from free_hunch_tpu_torch.ops import _nvcc
+from free_hunch_tpu_torch.ops import gn_quant as gq
 from free_hunch_tpu_torch.ops import groupnorm as gn
+from free_hunch_tpu_torch.ops import quant as q
 from free_hunch_tpu_torch.samplers import edm
 
 ROOT = Path(__file__).resolve().parent
 SETUP_256 = ROOT / "models" / "256x256_diffusion_uncond_setup.txt"
 CKPT_256 = ROOT / "models" / "256x256_diffusion_uncond.pt"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the tensor
+# cores, dense int8 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
 # GroupNorm+SiLU arithmetic per element: Welford update 5, normalise+affine 4,
 # SiLU (exp, add, divide, multiply) 4
 GN_FLOPS_PER_ELEM = {True: 13, False: 9}
+# K2 per element: Welford 5, then twice normalise+affine+SiLU 8 (amax and
+# quantise passes) plus |.|, max, divide, round, clamp 5: 15 for one pass of
+# each, the least the function needs
+GNQ_FLOPS_PER_ELEM = 15
 GN_ENTRY = dict(name="groupnorm_silu", route="cuda",
                 source="free_hunch_tpu_torch/csrc/groupnorm.cu",
                 replaces="free_hunch_tpu/ops/pallas_groupnorm.py:109")
+GNQ_ENTRY = dict(name="gn_silu_quant", route="cuda",
+                 source="free_hunch_tpu_torch/csrc/gn_quant.cu",
+                 replaces="free_hunch_tpu/ops/pallas_gn_quant.py:140")
+K3_ENTRY = dict(name="int8_conv", route="cuda",
+                source="free_hunch_tpu_torch/csrc/int8_conv.cu",
+                replaces="free_hunch_tpu/ops/quant.py:96")
 
 
 def say(*parts):
@@ -83,6 +109,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def zero_counts():
+    gn.launches = gq.launches = q.launches = 0
+
+
+def counts() -> dict:
+    return {"groupnorm_silu": gn.launches, "gn_silu_quant": gq.launches,
+            "int8_conv": q.launches}
+
+
 # -- phase 1: card ----------------------------------------------------------
 
 def card_facts() -> str:
@@ -95,14 +130,17 @@ def card_facts() -> str:
         f"device {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     say(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}  "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
-    report = _nvcc.build("groupnorm")
-    if report is None:
-        say("groupnorm kernel: library already built from this source")
-    else:
-        say(f"groupnorm kernel built in {report['seconds']:.2f} s")
+    t0 = time.perf_counter()
+    reports = _nvcc.build_all()
+    say(f"kernels built together in {time.perf_counter() - t0:.2f} s of wall time:")
+    for name, report in reports.items():
+        if report is None:
+            say(f"  {name}: library already built from this source")
+            continue
+        say(f"  csrc/{name}.cu built in {report['seconds']:.2f} s")
         for line in report["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
-                say(f"  {line.strip()}")
+                say(f"    {line.strip()}")
     return smi
 
 
@@ -187,9 +225,24 @@ def check_gn(shape, dtype, silu, gen, reps=20):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def kernel_phase(forward_shapes: Counter) -> dict:
+def sum_entry(entry: dict, rows, keys) -> dict:
+    """The kernels-line entry of one forward: per-shape measurements times
+    their calls, summed; the bound's two terms summed apart."""
+    tot = {k: 0.0 for k in keys + ("bytes_ms", "ops_ms")}
+    err = 0.0
+    for calls, r in rows:
+        err = max(err, r["max_abs_err"])
+        for k in tot:
+            tot[k] += calls * r[k]
+    bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    return dict(entry, max_abs_err=err, **{k: tot[k] for k in keys},
+                bound_ms=max(tot["bytes_ms"], tot["ops_ms"]), bound_by=bound_by,
+                bytes_ms=tot["bytes_ms"], ops_ms=tot["ops_ms"])
+
+
+def gn_kernel_phase(forward_shapes: Counter) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    say("groupnorm_silu kernel vs plain (times in ms per call):")
+    say("groupnorm_silu kernel (K1) vs plain (times in ms per call):")
     named = [("in_norm", (2, 256, 256, 256), torch.bfloat16, True),
              ("decoder_concat", (2, 256, 256, 512), torch.bfloat16, True),
              ("out_norm_f32", (2, 256, 256, 256), torch.float32, True),
@@ -200,33 +253,184 @@ def kernel_phase(forward_shapes: Counter) -> dict:
             f"{r['max_abs_err']:.3g} ({r['tol']}) kernel {r['ms']:.4f} plain "
             f"{r['plain_ms']:.4f} library {r['library_ms']:.4f} bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
-    # the entry of the kernels line: all GroupNorms of one main-path forward
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bwd_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
-    err = 0.0
-    say("  one main-path UNet forward, per distinct shape (calls x ms):")
+    rows = []
+    say("  one bf16 main-path UNet forward, per distinct shape (calls x ms):")
     for (shape, dtype, silu), calls in sorted(forward_shapes.items(),
                                               key=lambda kv: -np.prod(kv[0][0])):
         r = check_gn(shape, dtype, silu, gen)
-        err = max(err, r["max_abs_err"])
-        for k in tot:
-            tot[k] += calls * r[k]
+        rows.append((calls, r))
         say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
             f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} plain {r['plain_ms']:.4f} "
             f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} backward "
             f"{r['bwd_ms']:.4f}")
-    n = sum(forward_shapes.values())
-    bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    bound_ms = max(tot["bytes_ms"], tot["ops_ms"])
-    say(f"  sum over the {n} calls of one forward: kernel {tot['ms']:.3f} ms, "
-        f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({bound_by}: {tot['bytes_ms']:.3f} ms of bytes at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s, {tot['ops_ms']:.3f} ms of f32 operations); "
-        f"their backward in the guidance vjp (plain autograd) {tot['bwd_ms']:.3f} ms")
-    return dict(GN_ENTRY, max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=tot["library_ms"])
+    e = sum_entry(GN_ENTRY, rows, ("ms", "plain_ms", "library_ms", "bwd_ms"))
+    say(f"  sum over the {sum(forward_shapes.values())} calls of one forward: kernel "
+        f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} ms, "
+        f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}: {e['bytes_ms']:.3f} ms of bytes at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s, {e['ops_ms']:.3f} ms of f32 operations); "
+        f"their backward in the guidance vjp (plain autograd) {e['bwd_ms']:.3f} ms")
+    return {k: e[k] for k in list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "library_ms"]}
 
 
-# -- phases 3 and 4: the slice -----------------------------------------------
+def int8_shapes_of_forward(model, batch: int, res: int, dev):
+    """K2 shapes (NHWC shape, dtype) and K3 shapes (input, weights, pad,
+    output dtype) -> calls, over one no-grad forward of the int8 model: the
+    wrappers are wrapped for that forward only. Checks that the forward
+    launched each kernel once per call."""
+    k2, k3 = Counter(), Counter()
+    orig2, orig3 = gq.gn_silu_quant_cuda, q.int8_conv_cuda
+
+    def rec2(x, gamma, beta, groups=32, eps=1e-5):
+        k2[(tuple(x.shape), x.dtype)] += 1
+        return orig2(x, gamma, beta, groups, eps)
+
+    def rec3(xq, wk, ascale, wscale, pad, out_dtype=torch.float32, stride=1):
+        k3[(tuple(xq.shape), tuple(wk.shape), pad, out_dtype)] += 1
+        return orig3(xq, wk, ascale, wscale, pad, out_dtype, stride)
+
+    before = counts()
+    gq.gn_silu_quant_cuda, q.int8_conv_cuda = rec2, rec3
+    try:
+        with torch.no_grad():
+            model(torch.zeros((batch, 3, res, res), device=dev),
+                  torch.full((batch,), 500.0, device=dev))
+        torch.cuda.synchronize()
+    finally:
+        gq.gn_silu_quant_cuda, q.int8_conv_cuda = orig2, orig3
+    after = counts()
+    n2, n3 = sum(k2.values()), sum(k3.values())
+    if (n2, n3) != (after["gn_silu_quant"] - before["gn_silu_quant"],
+                    after["int8_conv"] - before["int8_conv"]) or not (n2 and n3):
+        raise AssertionError(f"one int8 forward: {n2} K2 and {n3} K3 calls, launches "
+                             f"{before} -> {after}")
+    say(f"one fused-int8 UNet forward at batch {batch}: {n2} K2 launches at {len(k2)} "
+        f"distinct shapes, {n3} K3 launches at {len(k3)} distinct shapes")
+    return k2, k3
+
+
+def check_gn_quant(shape, dtype, gen, reps=20):
+    """K2 vs plain on one shape: the codes equal except where y / s lies
+    within rounding of a half-integer (there: one step, on at most 1e-4 of
+    the codes), the scales to 1e-6 relative."""
+    n, c = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda") * 0.2 + 1
+    b = torch.randn((n, c), generator=gen, device="cuda") * 0.2
+    xq, s = gq.gn_silu_quant_cuda(x, g, b)
+    wq, ws = gq.gn_silu_quant_plain(x, g, b)
+    torch.cuda.synchronize()
+    d = (xq.int() - wq.int()).abs()
+    err, frac = int(d.max()), float((d > 0).float().mean())
+    rel = float(((s - ws).abs() / ws).max())
+    if err > 1 or frac > 1e-4 or rel > 1e-6:
+        raise AssertionError(f"gn_silu_quant kernel {shape}: code diff {err} on {frac} "
+                             f"of the codes, scale rel err {rel}")
+    ms = time_ms(lambda: gq.gn_silu_quant_cuda(x, g, b), reps)
+    plain_ms = time_ms(lambda: gq.gn_silu_quant_plain(x, g, b), max(2, reps // 4))
+    # x read once, the codes written once, the (n, c) affine and the scales
+    nbytes = x.numel() * (x.element_size() + 1) + 2 * n * c * 4 + n * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = GNQ_FLOPS_PER_ELEM * x.numel() / F32_FLOP_PER_S * 1e3
+    return dict(max_abs_err=float(err), frac=frac, scale_rel=rel, ms=ms, plain_ms=plain_ms,
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms))
+
+
+def im2col(xq, kh: int, kw: int, pad: int):
+    """(n*Ho*Wo, kh*kw*I) int8 patches in K3's K order, for the yardstick."""
+    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    cols = xp.unfold(1, kh, 1).unfold(2, kw, 1)          # (n, Ho, Wo, I, kh, kw)
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * xq.shape[-1])
+
+
+def check_int8_conv(xs, ws, pad, out_dtype, gen, reps=10):
+    """K3 vs plain on one shape: the int32 sums bitwise equal, the output
+    bitwise equal to the plain epilogue on them. The yardsticks, timed only:
+    ``torch._int_mm`` on an explicit im2col (the same int32 sums) and the
+    bf16 cuDNN convolution of the same shape."""
+    n, o = xs[0], ws[0]
+    kh, kw = ws[1], ws[2]
+    xq = torch.randint(-127, 128, xs, generator=gen, device="cuda", dtype=torch.int8)
+    wk = torch.randint(-127, 128, ws, generator=gen, device="cuda", dtype=torch.int8)
+    asc = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+    wsc = torch.rand(o, generator=gen, device="cuda") * 1e-3 + 1e-4
+    acc = q.int8_conv_cuda(xq, wk, None, None, pad, torch.int32)
+    want = q.int8_conv_plain(xq, wk, None, None, pad, torch.int32)
+    out = q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(acc, want):
+        raise AssertionError(f"int8_conv kernel {xs} x {ws}: int32 sums differ by "
+                             f"{int((acc - want).abs().max())}")
+    if not torch.equal(out, q._epilogue(want, asc, wsc, out_dtype)):
+        raise AssertionError(f"int8_conv kernel {xs} x {ws}: epilogue not bitwise equal")
+    ms = time_ms(lambda: q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype), reps)
+    plain_ms = time_ms(lambda: q.int8_conv_plain(xq, wk, asc, wsc, pad, out_dtype), 2)
+    cols = im2col(xq, kh, kw, pad)
+    bmat = wk.reshape(o, -1).t()
+    try:
+        library_ms = time_ms(lambda: torch._int_mm(cols, bmat), reps)
+    except RuntimeError as e:
+        say(f"    torch._int_mm refused {tuple(cols.shape)} x {tuple(bmat.shape)}: {e}")
+        library_ms = None
+    del cols
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = wk.permute(0, 3, 1, 2).to(torch.bfloat16)
+    cudnn_ms = time_ms(lambda: F.conv2d(xb, wb, padding=pad), reps)
+    m = acc.shape[0] * acc.shape[1] * acc.shape[2]
+    ops = 2 * m * o * kh * kw * xs[-1]
+    nbytes = xq.numel() + wk.numel() + m * o * out.element_size() + 4 * (n + o)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                cudnn_ms=cudnn_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms), tops=ops / ms / 1e9)
+
+
+def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    say("gn_silu_quant kernel (K2) vs plain, one fused-int8 forward per distinct "
+        "shape (calls x ms; codes equal except ties, scales to 1e-6):")
+    rows = []
+    for (shape, dtype), calls in sorted(k2_shapes.items(), key=lambda kv: -np.prod(kv[0][0])):
+        r = check_gn_quant(shape, dtype, gen)
+        rows.append((calls, r))
+        say(f"    {calls:3d} x {shape} {str(dtype)[6:]}: code diff {r['max_abs_err']:.0f} on "
+            f"{r['frac']:.2e}, scale err {r['scale_rel']:.2e}; kernel {r['ms']:.4f} plain "
+            f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f}")
+    e2 = sum_entry(GNQ_ENTRY, rows, ("ms", "plain_ms"))
+    e2["library_ms"] = None
+    say(f"  K2 sum over the {sum(k2_shapes.values())} calls of one forward: kernel "
+        f"{e2['ms']:.3f} ms, plain {e2['plain_ms']:.3f} ms, bound {e2['bound_ms']:.3f} ms "
+        f"({e2['bound_by']}); no single PyTorch call computes it (library: none)")
+    say("int8_conv kernel (K3) vs plain, one fused-int8 forward per distinct shape "
+        "(calls x ms; int32 sums and epilogue bitwise):")
+    rows = []
+    for (xs, ws, pad, odt), calls in sorted(k3_shapes.items(),
+                                            key=lambda kv: -np.prod(kv[0][0]) * kv[0][1][0]):
+        r = check_int8_conv(xs, ws, pad, odt, gen)
+        rows.append((calls, r))
+        lib = "refused" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        say(f"    {calls:3d} x {xs} * {ws} pad {pad} -> {str(odt)[6:]}: kernel "
+            f"{r['ms']:.4f} ({r['tops']:.0f} TOP/s) plain {r['plain_ms']:.4f} _int_mm "
+            f"{lib} cudnn_bf16 {r['cudnn_ms']:.4f} bound {r['bound_ms']:.4f}")
+    have_lib = all(r["library_ms"] is not None for _, r in rows)
+    if not have_lib:
+        for _, r in rows:
+            r["library_ms"] = 0.0
+    e3 = sum_entry(K3_ENTRY, rows, ("ms", "plain_ms", "library_ms", "cudnn_ms"))
+    if not have_lib:
+        e3["library_ms"] = None
+    lib = "n/a" if e3["library_ms"] is None else f"{e3['library_ms']:.3f}"
+    say(f"  K3 sum over the {sum(k3_shapes.values())} calls of one forward: kernel "
+        f"{e3['ms']:.3f} ms, plain {e3['plain_ms']:.3f} ms, _int_mm on im2col {lib} ms, "
+        f"bf16 cuDNN conv {e3['cudnn_ms']:.3f} ms, bound {e3['bound_ms']:.3f} ms "
+        f"({e3['bound_by']}: {e3['ops_ms']:.3f} ms of int8 operations at "
+        f"{INT8_OP_PER_S / 1e12:.0f} TOP/s, {e3['bytes_ms']:.3f} ms of bytes)")
+    keep = list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms"]
+    return {k: e2[k] for k in keep}, {k: e3[k] for k in keep}
+
+
+# -- phases 3 and 4: the slices ----------------------------------------------
 
 class Recorder:
     """Pass-through guidance mechanism that keeps the last state."""
@@ -259,11 +463,14 @@ def schedule(precond, steps: int):
         discretization="edm", schedule="linear", scaling="none")
 
 
+TINY = dict(image_size=32, num_channels=32, num_res_blocks=1, channel_mult="1,2",
+            attention_resolutions="8", num_head_channels=16)
+
+
 def reference_phase(seed: int):
     """32 px slice, f32 UNet, 3 Heun steps: card (kernels) vs CPU (plain)."""
     res, batch, steps = 32, 2, 3
-    tiny = dict(image_size=res, num_channels=32, num_res_blocks=1, channel_mult="1,2",
-                attention_resolutions="8", num_head_channels=16, dtype=torch.float32)
+    tiny = dict(TINY, dtype=torch.float32)
     cpu_model = loading.random_init_(create_model(**tiny), seed=seed)
     with torch.device("cuda"):
         gpu_model = create_model(**tiny)
@@ -297,20 +504,251 @@ def reference_phase(seed: int):
     limit = 1e-3 * np.abs(tc).reshape(steps, -1).max(axis=1)
     limit[-1] = 4e-3
     err = np.abs(tg - tc).reshape(steps, -1).max(axis=1)
-    say(f"reference 32 px slice, card vs CPU: per-step max |dx| {err.tolist()} "
+    say(f"reference 32 px f32 slice, card vs CPU: per-step max |dx| {err.tolist()} "
         f"(limits {limit.tolist()}), CG niter card {ng.tolist()} "
         f"cpu {nc.tolist()}, card kernel launches {lg}")
     if not (np.isfinite(tg).all() and (err <= limit).all() and (ng == nc).all()):
         raise AssertionError("reference phase: card and CPU slices disagree")
 
 
-KERNEL_FAMILIES = (("groupnorm_silu (csrc/groupnorm.cu)", ("gn_stats", "gn_finalize",
-                                                            "gn_apply")),
-                   ("cuFFT", ("fft",)),
-                   ("convolutions and matmuls (cuDNN, cuBLAS)",
-                    ("gemm", "xmma", "conv", "cutlass", "cudnn", "implicit")),
-                   ("softmax", ("softmax",)))
-BWD_RANGE = "groupnorm_silu_backward"   # the profiler range in ops/groupnorm.py
+def free_hunch_tests(op, res: int, cap: int, prior_dir: str):
+    """The mechanism configuration of the CPU parity tests
+    (tests/test_torch_freehunch.py): the DCT prior cut to the 32 px grid,
+    vjp guidance, CG recycling the previous stage's solution."""
+    return choose_conditioning_mechanism("online_covariance")(
+        cond_scaling=1.0, forward_operator=op, image_base_covariance="dct_diagonal",
+        data_dir=prior_dir, init_denoiser_variance=1.0, init_noise_variance=80.0**2,
+        data_dim=3 * res * res, cov_capacity=cap, solver_type="customcuda",
+        cg_coords="pixel", cg_warm_start="prev", guidance_gradient="vjp")
+
+
+def rel_rms(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# Fixed limits of the 32 px int8 references, card against CPU, as relative
+# RMS differences. PERF.md (section 6, PR 2) gives each one's sound reading
+# and the readings of wrong paths, from tests/test_torch_chip_smoke_int8.py.
+# Every int8 module on its own, replayed on the card's recorded inputs:
+# only K2's ties can move a code, so a sound path reads near 0 and a wrong
+# quantiser, scale or FiLM fold 1e-2 or more.
+INT8_MODULE_LIMITS = dict(out_rel_rms=2e-3, dx_rel_rms=2e-3)
+# The whole torso and 3 guided Heun steps: one code that flips at a rounding
+# tie moves the per-sample abs-max and with it every later code, so a
+# 1e-6 change of the input alone moves these by 1-7 %. They catch a wrong
+# pullback, a lost calibration or non-finite output, not a subtle error.
+INT8_REF_LIMITS = dict(unet_rel_rms=5e-2, step_rel_rms=(5e-2, 5e-2, 0.2),
+                       table_rel_max=5e-2)
+
+
+class Int8Reference:
+    """The 32 px int8 witness: seeded weights of the tiny UNet (f32 torso),
+    noise and measurement; the bench's Heun solver, 3 steps; the DCT prior
+    of the CPU parity tests cut to 32 px, written to ``prior_dir``."""
+
+    res, batch, steps = 32, 2, 3
+
+    def __init__(self, seed: int, prior_dir: str):
+        res, batch = self.res, self.batch
+        self.tiny = dict(TINY, dtype=torch.float32)
+        self.state = loading.random_init_(create_model(**self.tiny, quant="int8"),
+                                          seed=seed).state_dict()
+        rng = np.random.default_rng(seed + 1)
+        self.noise = rng.normal(size=(batch, 3, res, res)).astype(np.float32)
+        self.y = rng.uniform(-1, 1, (batch, 3, res, res)).astype(np.float32)
+        pre0 = IDDPMLinearPrecond(torch.nn.Identity(), img_resolution=res, img_channels=3)
+        self.xs, self.s0 = schedule(pre0, self.steps)
+        self.cap = edm.required_cov_capacity(self.xs)
+        self.sig0 = float(self.xs["sigma_hat"][0])
+        # the raw UNet's input at the first guided call
+        self.c_in = np.float32(self.s0 / np.sqrt(self.sig0 ** 2 + 1.0))
+        self.t_in = torch.full((batch,), float(pre0.M - pre0.round_sigma(self.sig0, True)))
+        self.prior_dir = prior_dir
+        prior = assets.dct_variance()[:, :res, :res] / (256 // res) ** 2
+        np.savez(Path(prior_dir) / "dct_variance.npz", dct_variance=prior.astype(np.float32))
+
+    def run(self, quant: str, fused: bool, dev: str, noise=None) -> dict:
+        """One side: the static torso calibrates its own table first; then
+        the guided Heun slice, and the raw UNet on the first guided call's
+        input (a static torso on the stage of its table that call selects).
+        Returns the trajectory, CG niter, the raw UNet's output, the table
+        and the kernel launches of the side. ``noise`` replaces the seeded
+        noise (the UNet's input follows it)."""
+        res = self.res
+        with torch.device(dev):
+            model = create_model(**self.tiny, quant=quant, fused_gn_quant=fused)
+        model.load_state_dict(self.state)
+        model.eval().requires_grad_(False)
+        op = get_operator("gaussian_blur", in_shape=(1, 3, res, res), sigma_s=0.1, device=dev)
+        noise = self.noise if noise is None else noise
+        nz, yy = torch.as_tensor(noise, device=dev), torch.as_tensor(self.y, device=dev)
+        zero_counts()
+        qs = None
+        if quant == "int8_static":
+            qs = calibrate_qscales(TINY, self.state, free_hunch_tests(op, res, self.cap,
+                                                                      self.prior_dir),
+                                   nz, yy, self.xs, self.s0, dtype=torch.float32, device=dev)
+        precond = loading.wrap_precond(model, {"image_size": res}, qscales=qs)
+        _, traj, diag = edm.sample_loop(
+            precond, free_hunch_tests(op, res, self.cap, self.prior_dir), nz, yy, self.xs,
+            sigma0_scaled=self.s0, return_trajectory=True, collect_diagnostics=True)
+        with torch.no_grad():
+            precond(torch.zeros_like(nz), self.sig0)     # a static torso's stage
+            f = model(nz * float(self.c_in), self.t_in.to(dev))
+        return dict(traj=traj.cpu().numpy(), niter=diag["cg_niter"].numpy(),
+                    unet=f.cpu().numpy(), launches=counts(), qs=qs, model=model)
+
+    def unet_input(self, dev: str):
+        return (torch.as_tensor(self.noise * self.c_in, device=dev), self.t_in.to(dev))
+
+    def readings(self, cpu: dict, card: dict) -> dict:
+        """card against cpu: the raw UNet's and every Heun step's relative
+        RMS difference (and max |d| over max |ref|, printed only), CG niter,
+        and a static torso's calibrated tables."""
+        out = {}
+        if cpu["qs"] is not None:
+            qc, qg = cpu["qs"], card["qs"]
+            out["table_rel_max"] = max(float(np.max(np.abs(qg[1][k] - qc[1][k]) / qc[1][k]))
+                                       for k in qc[1])
+            out["same_grid"] = bool(np.array_equal(qg[0], qc[0]))
+        f_cpu, f_card = cpu["unet"], card["unet"]
+        out["unet_rel_rms"] = rel_rms(f_card, f_cpu)
+        out["unet_max"] = float(np.abs(f_card - f_cpu).max() / np.abs(f_cpu).max())
+        out["step_rel_rms"] = [rel_rms(card["traj"][i], cpu["traj"][i])
+                               for i in range(self.steps)]
+        out["step_max"] = [float(np.abs(card["traj"][i] - cpu["traj"][i]).max()
+                                 / np.abs(cpu["traj"][i]).max()) for i in range(self.steps)]
+        out["niter_cpu"], out["niter_card"] = cpu["niter"].tolist(), card["niter"].tolist()
+        out["finite"] = bool(np.isfinite(card["traj"]).all() and np.isfinite(f_card).all())
+        return out
+
+
+def int8_module_inputs(model, x, t) -> list:
+    """(name, input, gn) of every int8 module call in one forward of
+    ``model``, on its device; ``gn`` the fused route's (gamma, beta) or None."""
+    recs = []
+
+    def hook(name):
+        def rec(mod, args, kwargs, out):
+            gn = kwargs.get("gn")
+            recs.append((name, args[0].detach().clone(),
+                         None if gn is None else tuple(g.detach().clone() for g in gn)))
+        return rec
+    hooks = [m.register_forward_hook(hook(n), with_kwargs=True)
+             for n, m in model.named_modules() if isinstance(m, (q.QuantConv, q.QuantDense))]
+    try:
+        with torch.no_grad():
+            model(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    return recs
+
+
+def int8_module_replay(model, recs: list) -> list:
+    """Each recorded call again, on ``model``'s device: (output, input
+    gradient under a seeded cotangent), as f32 CPU arrays."""
+    dev = next(model.parameters()).device
+    out = []
+    for i, (name, x, gn) in enumerate(recs):
+        xd = x.to(dev).requires_grad_(True)
+        kw = {} if gn is None else {"gn": tuple(g.to(dev) for g in gn)}
+        y = model.get_submodule(name)(xd, **kw)
+        ct = np.random.default_rng(i).normal(size=tuple(y.shape)).astype(np.float32)
+        (dx,) = torch.autograd.grad(y, xd, torch.as_tensor(ct, device=dev).to(y.dtype))
+        out.append((y.detach().float().cpu().numpy(), dx.float().cpu().numpy()))
+    return out
+
+
+def int8_module_readings(recs: list, cpu: list, card: list) -> dict:
+    """The largest relative RMS difference, card against CPU, of any int8
+    module's output and of its input gradient, with the module's name."""
+    out_rel = [(rel_rms(g[0], c[0]), r[0]) for r, c, g in zip(recs, cpu, card)]
+    dx_rel = [(rel_rms(g[1], c[1]), r[0]) for r, c, g in zip(recs, cpu, card)]
+    return dict(modules=len(recs), fused=sum(r[2] is not None for r in recs),
+                out_rel_rms=max(out_rel), dx_rel_rms=max(dx_rel))
+
+
+def int8_reference_failures(r: dict, m: dict) -> list:
+    """What the slice readings ``r`` and the module readings ``m`` break of
+    the limits and of equal CG niter."""
+    lim, bad = INT8_REF_LIMITS, []
+    if not r["finite"]:
+        bad.append("card output not finite")
+    if r["niter_card"] != r["niter_cpu"]:
+        bad.append("CG niter differs")
+    if not r["unet_rel_rms"] <= lim["unet_rel_rms"]:
+        bad.append(f"raw UNet rel RMS {r['unet_rel_rms']:.3g} > {lim['unet_rel_rms']}")
+    for i, (e, cap) in enumerate(zip(r["step_rel_rms"], lim["step_rel_rms"])):
+        if not e <= cap:
+            bad.append(f"Heun step {i} rel RMS {e:.3g} > {cap}")
+    if "table_rel_max" in r and not (r["same_grid"]
+                                     and r["table_rel_max"] <= lim["table_rel_max"]):
+        bad.append(f"calibrated tables: grid equal {r['same_grid']}, max rel "
+                   f"{r['table_rel_max']:.3g} > {lim['table_rel_max']}")
+    for key, cap in INT8_MODULE_LIMITS.items():
+        if not m[key][0] <= cap:
+            bad.append(f"module {m[key][1]}: {key} {m[key][0]:.3g} > {cap}")
+    return bad
+
+
+def int8_reference_phase(seed: int, card: str = "cuda"):
+    """32 px int8 torsos, f32, card (K1-K3) vs CPU (plain versions): the
+    fused route, then the static torso with a calibration on each side.
+    Each is held to ``INT8_MODULE_LIMITS`` module by module (the card's
+    int8 modules recorded in one forward of the raw UNet, then each call
+    replayed on both devices, forward and pullback; the static modules on
+    the CPU's scales) and to ``INT8_REF_LIMITS`` end to end (the raw UNet,
+    3 guided Heun steps with equal CG niter, the calibrated tables)."""
+    with tempfile.TemporaryDirectory() as prior_dir:
+        ref = Int8Reference(seed, prior_dir)
+        for label, quant, fused in (("fused int8", "int8", True),
+                                    ("static int8", "int8_static", False)):
+            cpu, gpu = ref.run(quant, fused, "cpu"), ref.run(quant, fused, card)
+            want_kernels = ("int8_conv",) + (("gn_silu_quant",) if fused else ())
+            if any(cpu["launches"].values()) or not all(gpu["launches"][k]
+                                                        for k in want_kernels):
+                raise AssertionError(f"{label} reference: launches cpu {cpu['launches']}, "
+                                     f"card {gpu['launches']}")
+            r = ref.readings(cpu, gpu)
+            for name, mod in cpu["model"].named_modules():
+                if isinstance(mod, q._QuantSite):
+                    gpu["model"].get_submodule(name).act_scale.copy_(mod.act_scale)
+            recs = int8_module_inputs(gpu["model"], *ref.unet_input(card))
+            m = int8_module_readings(recs, int8_module_replay(cpu["model"], recs),
+                                     int8_module_replay(gpu["model"], recs))
+            lim = INT8_REF_LIMITS
+            say(f"reference 32 px {label}, card vs CPU: {m['modules']} int8 module calls "
+                f"({m['fused']} fused) replayed on the card's inputs, largest rel RMS "
+                f"output {m['out_rel_rms'][0]:.4g} ({m['out_rel_rms'][1]}), input gradient "
+                f"{m['dx_rel_rms'][0]:.4g} ({m['dx_rel_rms'][1]}) (limits "
+                f"{INT8_MODULE_LIMITS}); raw UNet rel RMS {r['unet_rel_rms']:.4g} (limit "
+                f"{lim['unet_rel_rms']}; max |dF| {r['unet_max']:.4g} of max |F|); 3 Heun "
+                f"steps, rel RMS {[round(e, 6) for e in r['step_rel_rms']]} (limits "
+                f"{list(lim['step_rel_rms'])}; max |dx| "
+                f"{[round(e, 6) for e in r['step_max']]} of max |x|); CG niter card "
+                f"{r['niter_card']} cpu {r['niter_cpu']}"
+                + (f"; calibrated scales max rel {r['table_rel_max']:.4g} (limit "
+                   f"{lim['table_rel_max']})" if "table_rel_max" in r else "")
+                + f"; card launches {gpu['launches']}")
+            bad = int8_reference_failures(r, m)
+            if bad:
+                raise AssertionError(f"{label} reference: card and CPU disagree: {bad}")
+
+
+KERNEL_FAMILIES = (
+    ("K3 int8_conv (csrc/int8_conv.cu)", ("int8_conv_kernel",)),
+    ("K2b/K2c gn_silu_quant amax, quantise (csrc/gn_quant.cu)", ("gnq_",)),
+    ("K1a/K2a GroupNorm statistics (csrc/gn_stats.cuh)", ("gn_stats", "gn_finalize")),
+    ("K1b groupnorm_silu apply (csrc/groupnorm.cu)", ("gn_apply",)),
+    ("cuFFT", ("fft",)),
+    ("convolutions and matmuls (cuDNN, cuBLAS)",
+     ("gemm", "xmma", "conv", "cutlass", "cudnn", "implicit")),
+    ("softmax", ("softmax",)))
+# the profiler ranges of the plain-autograd backwards (ops/groupnorm.py, ops/quant.py)
+RANGES = ("groupnorm_silu_backward", "gn_quant_conv_backward")
 
 
 def device_breakdown(run_once):
@@ -328,7 +766,7 @@ def device_breakdown(run_once):
         wall_us = (time.perf_counter() - t0) * 1e6
     fams, kernels = Counter(), Counter()
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key == BWD_RANGE:
+        if e.device_type != DeviceType.CUDA or e.key in RANGES:
             continue
         name = e.key.lower()
         fam = next((f for f, keys in KERNEL_FAMILIES if any(k in name for k in keys)),
@@ -349,12 +787,12 @@ def device_breakdown(run_once):
     return busy
 
 
-def backward_share(guided_call, calls_per_run: int, run_busy_us: float):
+def backward_share(guided_call, calls_per_run: int, run_busy_us: float, range_name: str):
     """One guided call (forward, vjp, covariance and CG) under
     ``torch.profiler`` with host and device activity: the device time of
-    the kernels launched inside the ``groupnorm_silu_backward`` ranges, as a
-    share of the call's device time and, times the calls of a run, of the
-    profiled run's device time."""
+    the kernels launched inside the ``range_name`` ranges, as a share of the
+    call's device time and, times the calls of a run, of the profiled run's
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -363,20 +801,34 @@ def backward_share(guided_call, calls_per_run: int, run_busy_us: float):
         torch.cuda.synchronize()
     events = prof.events()
     busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA and e.name != BWD_RANGE)
+               if e.device_type == DeviceType.CUDA and e.name not in RANGES)
     ranges = [e for e in events
-              if e.device_type == DeviceType.CPU and e.name == BWD_RANGE]
+              if e.device_type == DeviceType.CPU and e.name == range_name]
     bwd = sum(e.device_time_total for e in ranges)
     if busy <= 0 or not ranges:
-        raise AssertionError(f"backward attribution: {len(ranges)} backward ranges, "
+        raise AssertionError(f"backward attribution: {len(ranges)} {range_name} ranges, "
                              f"{busy} us of device time in the trace")
     say(f"  one guided call traced: device {busy / 1e3:.3f} ms, of which "
-        f"{len(ranges)} groupnorm_silu_backward ranges {bwd / 1e3:.3f} ms "
+        f"{len(ranges)} {range_name} ranges {bwd / 1e3:.3f} ms "
         f"({bwd / busy:.3f}); x {calls_per_run} calls = {bwd * calls_per_run / 1e6:.3f}"
         f" s, {bwd * calls_per_run / run_busy_us:.3f} of the profiled run's device time")
 
 
-def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int):
+def expected_launches(model, fw: int, calls: dict) -> dict:
+    """Each kernel's launches over a run that made ``fw`` guided calls, from
+    the module calls the hooks counted (``calls``: GroupNorm32 calls, fused
+    QuantConv calls, all int8 module calls, recomputes included): K1 once
+    per GroupNorm call, K2 once per fused call, K3 once per int8 module call
+    and once more per int8 module in each call's vjp (the pullback)."""
+    n_int8 = sum(isinstance(m, (q.QuantConv, q.QuantDense)) for m in model.modules())
+    return {"groupnorm_silu": calls["gn"], "gn_silu_quant": calls["fused"],
+            "int8_conv": calls["int8"] + fw * n_int8}
+
+
+def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
+                label: str):
+    """The bench.py protocol on ``model``; returns the first run's launch
+    counts and the wall time of every run."""
     dev = next(model.parameters()).device
     res = model_args["image_size"]
     precond = loading.wrap_precond(model, model_args)
@@ -397,34 +849,37 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int)
         forwards += 1
         return precond(x, sigma)
 
-    gn_calls = 0
+    calls = Counter()
 
-    def count(mod, inputs):
-        nonlocal gn_calls
-        gn_calls += 1
+    def count_gn(mod, args):
+        calls["gn"] += 1
 
-    hooks = [m.register_forward_pre_hook(count) for m in model.modules()
+    def count_int8(mod, args, kwargs):
+        calls["int8"] += 1
+        calls["fused"] += kwargs.get("gn") is not None
+
+    hooks = [m.register_forward_pre_hook(count_gn) for m in model.modules()
              if isinstance(m, GroupNorm32)]
-    in_resblocks = sum(isinstance(m, GroupNorm32) for r in model.modules()
-                       if isinstance(r, ResBlock) for m in r.modules())
-    n_norms = sum(isinstance(m, GroupNorm32) for m in model.modules())
-    say(f"slice: {res}x{res}, batch {batch}, {steps} Heun steps, cov_capacity {cap}, "
-        f"{sum(p.numel() for p in model.parameters())} parameters")
+    hooks += [m.register_forward_pre_hook(count_int8, with_kwargs=True)
+              for m in model.modules() if isinstance(m, (q.QuantConv, q.QuantDense))]
+    say(f"{label} slice: {res}x{res}, batch {batch}, {steps} Heun steps, cov_capacity "
+        f"{cap}, {sum(p.numel() for p in model.parameters())} parameters")
     walls = []
     for run in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if run == 0:
-            gn.launches = 0
-            forwards = gn_calls = 0
+            forwards = 0
+            calls.clear()
+            zero_counts()
         t0 = time.perf_counter()
         x, _, diag = edm.sample_loop(denoise, mech, noise, y, xs, gen,
                                      sigma0_scaled=s0, collect_diagnostics=True)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if run == 0:
-            launches = gn.launches
-            counted = dict(forwards=forwards, gn_calls=gn_calls, diag=diag,
+            launches = counts()
+            counted = dict(forwards=forwards, calls=dict(calls), diag=diag,
                            rank=mech.state.cov.k.cpu().tolist(), x=x)
         say(f"  run {run}: wall {walls[-1]:.3f} s, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -432,25 +887,32 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int)
         h.remove()
     busy = device_breakdown(lambda: edm.sample_loop(denoise, mech, noise, y, xs, gen,
                                                     sigma0_scaled=s0))
+    fused = counted["calls"].get("fused", 0)
     if busy:
         fh = mech.mech
         backward_share(lambda: fh(denoise, noise * s0, y, float(xs["sigma_hat"][0]),
                                   fh.init_state(batch, (3, res, res))),
-                       counted["forwards"], busy)
+                       counted["forwards"], busy,
+                       RANGES[1] if fused else RANGES[0])
 
     x, diag = counted["x"], counted["diag"]
     if tuple(x.shape) != (batch, 3, res, res) or not bool(torch.isfinite(x).all()):
-        raise AssertionError(f"slice: final x {tuple(x.shape)} not finite")
+        raise AssertionError(f"{label} slice: final x {tuple(x.shape)} not finite")
     fw = counted["forwards"]
-    # every guided call runs one forward (101 GroupNorms) and one vjp, whose
-    # remat recompute runs each ResBlock forward again (its 2 GroupNorms)
-    want = fw * (n_norms + in_resblocks)
-    say(f"  groupnorm_silu launches {launches} = {fw} UNet forwards x {n_norms} "
-        f"+ {fw} vjp recomputes x {in_resblocks} (GroupNorm module calls "
-        f"{counted['gn_calls']})")
-    if fw != 2 * steps - 1 or not launches == counted["gn_calls"] == want:
-        raise AssertionError(f"slice: {launches} launches, {counted['gn_calls']} "
-                             f"GroupNorm calls, want {want} over {fw} forwards")
+    want = expected_launches(model, fw, Counter(counted["calls"]))
+    in_resblocks = sum(isinstance(m, GroupNorm32) for r in model.modules()
+                       if isinstance(r, ResBlock) and not r.fused for m in r.modules())
+    n_norms = sum(isinstance(m, GroupNorm32) for m in model.modules()) - sum(
+        2 * r.fused for r in model.modules() if isinstance(r, ResBlock))
+    say(f"  launches {launches} over {fw} guided calls; from the module hooks "
+        f"{want}; per guided call: " + ", ".join(
+            f"{k} {v / max(fw, 1):g}" for k, v in launches.items()))
+    if fw != 2 * steps - 1 or launches != want:
+        raise AssertionError(f"{label} slice: launches {launches}, hooks say {want} "
+                             f"over {fw} forwards")
+    if launches["groupnorm_silu"] != fw * (n_norms + in_resblocks):
+        raise AssertionError(f"{label} slice: {launches['groupnorm_silu']} K1 launches, "
+                             f"topology says {fw} x ({n_norms} + {in_resblocks})")
     niter = diag["cg_niter"].numpy()
     optf = diag["cg_optfrac"].numpy()
     say(f"  sigma_hat {np.round(xs['sigma_hat'], 4).tolist()}")
@@ -468,8 +930,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=30)
-    ap.add_argument("--runs", type=int, default=2, help="sampling runs; the first "
-                    "is counted, every one is timed")
+    ap.add_argument("--runs", type=int, default=2, help="sampling runs of the bf16 "
+                    "slice; the first is counted, every one is timed (the int8 slice "
+                    "runs once)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.runs < 1:
@@ -483,6 +946,7 @@ def main(argv=None) -> int:
               f"{fht.__file__}", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     smi = card_facts()
     t0 = time.perf_counter()
     model, model_args = loading.load_model(
@@ -491,14 +955,41 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     say(f"256 px UNet built ({'checkpoint' if CKPT_256.exists() else 'seeded random'}"
         f" weights) in {time.perf_counter() - t0:.2f} s")
-    shapes = gn_shapes_of_forward(model, args.batch, model_args["image_size"], "cuda")
-    entry = kernel_phase(shapes)
+    res = model_args["image_size"]
+    gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"))
     reference_phase(args.seed)
-    launches, walls = slice_phase(model, model_args, args.batch, args.steps,
-                                  args.runs, args.seed)
-    say(f"sampling wall time per run (s): {[round(w, 3) for w in walls]} on {smi}")
-    entry["launches"] = launches
-    say(json.dumps({"kernels": [entry]}))
+    launches, walls = slice_phase(model, model_args, args.batch, args.steps, args.runs,
+                                  args.seed, "bf16")
+    say(f"bf16 sampling wall time per run (s): {[round(w, 3) for w in walls]} on {smi}")
+    gn_entry["launches"] = launches["groupnorm_silu"]
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qmodel, _ = loading.load_model(
+        str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16, init_random_if_missing=True,
+        rng_seed=args.seed, remat=True, quant="int8", fused_gn_quant=True)
+    torch.cuda.synchronize()
+    say(f"256 px fused-int8 UNet built in {time.perf_counter() - t0:.2f} s")
+    k2_entry, k3_entry = int8_kernel_phase(*int8_shapes_of_forward(qmodel, args.batch, res,
+                                                                   "cuda"))
+    int8_reference_phase(args.seed)
+    qlaunches, qwalls = slice_phase(qmodel, model_args, args.batch, args.steps, 1,
+                                    args.seed, "fused int8")
+    say(f"fused int8 sampling wall time per run (s): {[round(w, 3) for w in qwalls]} "
+        f"on {smi}")
+    k2_entry["launches"] = qlaunches["gn_silu_quant"]
+    k3_entry["launches"] = qlaunches["int8_conv"]
+    say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
+        f"{qlaunches['groupnorm_silu']} on the int8 slice")
+    for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
+                    ("groupnorm_silu", qlaunches["groupnorm_silu"]),
+                    ("gn_silu_quant", k2_entry["launches"]),
+                    ("int8_conv", k3_entry["launches"])):
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its main path")
+    say(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps({"kernels": [gn_entry, k2_entry, k3_entry]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

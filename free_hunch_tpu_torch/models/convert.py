@@ -7,10 +7,16 @@ that file's ``convert_state_dict`` (:162-182): HWIO -> OIHW for convs,
 (I, O) -> (O, I) for linears, and Dense (I, O) -> 1x1 conv1d (O, I, 1) for
 the attention ``qkv``/``proj_out``. Tests use it so that both packages
 compute with the same weights.
+
+``qscales_from_flax`` / ``qscales_to_flax`` carry an ``int8_static``
+calibration table across: the JAX package's is (sigmas, a 'qscales' tree
+keyed by flax module paths such as ``down_3_res/in_conv/act_scale``); the
+port's is (sigmas, {torch module name: scales}), e.g.
+``input_blocks.4.0.in_layers.2``. The site pairs come from ``name_map``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -155,3 +161,46 @@ def state_dict_from_flax(params: dict, cfg: UNetConfig) -> Dict[str, torch.Tenso
         out[torch_name] = torch.from_numpy(
             np.array(_FROM_FLAX[kind](np.asarray(node, np.float32)), order="C"))
     return out
+
+
+def quant_site_paths(cfg: UNetConfig) -> Dict[str, Tuple[str, ...]]:
+    """torch module name -> flax module path, for every conv and dense
+    layer of a config (the int8 sites are among them)."""
+    return {t[:-len(".weight")]: f[:-1] for t, f, kind in name_map(cfg)
+            if kind in ("conv", "conv1d") and t.endswith(".weight")}
+
+
+def qscales_from_flax(qscales, cfg: UNetConfig) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """The JAX package's (sigmas, 'qscales' tree) -> the port's (sigmas,
+    {site: (S,) f32}). Raises if a scale of the tree has no site."""
+    sigmas, tree = qscales
+    table = {}
+    for site, path in quant_site_paths(cfg).items():
+        node = tree
+        for key in path:
+            node = node.get(key) if isinstance(node, Mapping) else None
+        if isinstance(node, Mapping) and "act_scale" in node:
+            table[site] = np.asarray(node["act_scale"], np.float32)
+
+    def count(node):
+        if isinstance(node, Mapping):
+            return sum(count(v) for v in node.values())
+        return 1
+    if count(tree) != len(table):
+        raise KeyError(f"qscales tree has {count(tree)} scales, {len(table)} map to "
+                       f"sites of this config")
+    return np.asarray(sigmas, np.float32), table
+
+
+def qscales_to_flax(qscales, cfg: UNetConfig) -> Tuple[np.ndarray, dict]:
+    """The port's (sigmas, {site: scales}) -> the JAX package's (sigmas,
+    nested 'qscales' tree of numpy arrays)."""
+    sigmas, table = qscales
+    paths = quant_site_paths(cfg)
+    tree: dict = {}
+    for site, scales in table.items():
+        node = tree
+        for key in paths[site]:
+            node = node.setdefault(key, {})
+        node["act_scale"] = np.asarray(scales, np.float32)
+    return np.asarray(sigmas, np.float32), tree

@@ -87,19 +87,26 @@ def random_init_(model: nn.Module, seed: int = 0, zero_scale: float = 0.1) -> nn
 
 def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
                init_random_if_missing: bool = False, rng_seed: int = 0,
-               remat: bool = True, device=None) -> Tuple[UNetModel, dict]:
+               remat: bool = True, device=None, quant=None, fused_gn_quant: bool = False,
+               quant_1x1: bool = True) -> Tuple[UNetModel, dict]:
     """Build the UNet per the setup file on ``device`` (default CUDA) and
     load the reference checkpoint, or, when it is absent and
     ``init_random_if_missing``, seeded random weights. Returns
     (model, model_args); the model is in eval mode with frozen parameters
     (the guidance vjp differentiates with respect to the input only).
-    Sets the port's precision policy (``use_full_f32``)."""
+    Sets the port's precision policy (``use_full_f32``).
+
+    quant: None (bf16 torso) or "int8" / "int8_static" / "int8_calib";
+    ``fused_gn_quant`` and ``quant_1x1`` as in ``UNetConfig``. A seed gives
+    the same random weights for every torso."""
     dev = resolve_device(device)
     use_full_f32()
     with open(setup_path, "r") as f:
         model_args = parse_setup_txt(f.read())
     with torch.device(dev):
-        model = create_model(dtype=dtype, remat=remat, **model_args)
+        model = create_model(dtype=dtype, remat=remat, quant=quant,
+                             fused_gn_quant=fused_gn_quant, quant_1x1=quant_1x1,
+                             **model_args)
     if state_dict_path and os.path.exists(state_dict_path):
         sd = torch.load(state_dict_path, map_location=dev, weights_only=True)
         model.load_state_dict(sd)
@@ -113,12 +120,23 @@ def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
     return model, model_args
 
 
-def wrap_precond(model: UNetModel, model_args: dict, kind: str = "linear"):
-    """Wrap in the sigma parameterisation (linear-beta iDDPM)."""
+def wrap_precond(model: UNetModel, model_args: dict, kind: str = "linear",
+                 qscales=None):
+    """Wrap in the sigma parameterisation (linear-beta iDDPM).
+
+    qscales: the per-(site, sigma-stage) activation-scale table of a
+    ``quant="int8_static"`` model (``models/calibrate.calibrate_qscales``),
+    which such a model needs."""
     if kind != "linear":
         raise NotImplementedError(f"preconditioner {kind!r} is not ported yet "
                                   "(only 'linear')")
+    if model.cfg.quant == "int8_static" and qscales is None:
+        raise ValueError(
+            "quant='int8_static' needs a calibration table: pass qscales="
+            "(sigmas, table) from models/calibrate.calibrate_qscales (or use "
+            "quant='int8' for dynamic activation scales)")
     res = model_args.get("image_size", model.cfg.image_size)
     label_dim = 1000 if model_args.get("class_cond") else 0
     return IDDPMLinearPrecond(model, img_resolution=res, img_channels=3,
-                              label_dim=label_dim).to(next(model.parameters()).device)
+                              label_dim=label_dim, qscales=qscales
+                              ).to(next(model.parameters()).device)

@@ -5,14 +5,20 @@ Counterpart of ``IDDPMLinearPrecond`` in ``free_hunch_tpu/models/precond.py``
     D(x, sigma) -> (x0_mean, x0_var)
 with D(x, sigma) = clip(x - sigma F(c_in x, c_noise), -1, 1) and the
 learned-sigma channel mapped to an x0 posterior variance (Peng et al. Eq. 22).
+
+With ``qscales`` (an ``int8_static`` UNet's calibration table,
+``models/calibrate.py``), every call first selects the stage scales for its
+sigma (``_select_qscales``, the JAX package's ``precond.py:47-62``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from free_hunch_tpu_torch.ops.quant import _QuantSite
 
 
 def _linear_sigma_grid(beta_min: float, beta_max: float, M: int) -> np.ndarray:
@@ -23,15 +29,34 @@ def _linear_sigma_grid(beta_min: float, beta_max: float, M: int) -> np.ndarray:
     return np.sqrt((1.0 - alpha_bar) / alpha_bar)
 
 
+def _select_qscales(sigmas: torch.Tensor, sigma) -> torch.Tensor:
+    """Index of the calibration stage nearest to the call's sigma, taken
+    from ``sigma.reshape(-1)[0]`` (first index on ties). A batch must share
+    one sigma, as the sampler's does: a batch of mixed sigmas gets the first
+    row's stage for every row. ``sigma`` a tensor: the lookup stays on the
+    device; a host number: on the host."""
+    if isinstance(sigma, torch.Tensor):
+        s0 = sigma.float().reshape(-1)[0].to(sigmas.device)
+        return torch.argmin(torch.abs(sigmas - s0))
+    s0 = np.float32(np.asarray(sigma, np.float32).reshape(-1)[0])
+    return torch.tensor(int(np.argmin(np.abs(sigmas.cpu().numpy() - s0))))
+
+
 class IDDPMLinearPrecond(nn.Module):
     """Linear-beta iDDPM preconditioner. ``round_sigma`` has a host numpy
     branch (schedule setup; equal to the JAX package's bit for bit) and a
     tensor branch. ``forward(x, sigma)`` takes sigma as a host float or a
-    tensor."""
+    tensor.
+
+    qscales: optional (sigmas (S,), {site: (S,) scales}) table of an
+    ``int8_static`` model; sites are the torch names of its static int8
+    modules (``models/calibrate.py``). Each forward writes the nearest
+    stage's scales into those modules' ``act_scale`` buffers."""
 
     def __init__(self, model: nn.Module, img_resolution: int, img_channels: int,
                  label_dim: int = 0, beta_min: float = 0.0001, beta_max: float = 0.02,
-                 M: int = 1000):
+                 M: int = 1000,
+                 qscales: Optional[Tuple[np.ndarray, Dict[str, np.ndarray]]] = None):
         super().__init__()
         self.model = model
         self.img_resolution = img_resolution
@@ -54,6 +79,23 @@ class IDDPMLinearPrecond(nn.Module):
             np.nan_to_num(post_var).astype(np.float32)), persistent=False)
         self.register_buffer("posterior_mean_coef1", torch.as_tensor(
             np.nan_to_num(post_c1).astype(np.float32)), persistent=False)
+        self.qscales = qscales
+        self._qsites = []
+        if qscales is not None:
+            sigmas, table = qscales
+            sites = [(name, m) for name, m in model.named_modules()
+                     if isinstance(m, _QuantSite) and m.mode == "static"]
+            names = [name for name, _ in sites]
+            self._qsites = [m for _, m in sites]
+            missing = sorted(set(names) - set(table))
+            if not names or missing:
+                raise KeyError(f"qscales table lacks static int8 sites {missing[:4]} "
+                               f"(model has {len(names)})")
+            self.register_buffer("qscale_sigmas", torch.as_tensor(
+                np.asarray(sigmas, np.float32)), persistent=False)
+            self.register_buffer("qscale_table", torch.as_tensor(np.stack(
+                [np.asarray(table[n], np.float32) for n in names], axis=1)),
+                persistent=False)                                   # (S, sites)
 
     def round_sigma(self, sigma, return_index: bool = False):
         """Snap sigma to the nearest grid value (first index on ties)."""
@@ -82,6 +124,10 @@ class IDDPMLinearPrecond(nn.Module):
         c_out = -sigma
         c_in = 1.0 / torch.sqrt(sigma**2 + 1.0)
         c_noise = (self.M - idx).float()
+        if self._qsites:
+            row = self.qscale_table[_select_qscales(self.qscale_sigmas, sigma)]
+            for j, m in enumerate(self._qsites):
+                m.act_scale = row[j]
         out = self.model(c_in[:, None, None, None] * x, c_noise, y=y)
         F_x = out[:, :self.img_channels]
         v = out[:, self.img_channels:]

@@ -2,8 +2,8 @@
 
 Counterpart of ``free_hunch_tpu/models/unet.py`` (``UNetConfig``,
 ``timestep_embedding``, ``GroupNorm32``, ``ResBlock``, ``AttentionBlock``,
-``Upsample``/``Downsample``, ``UNetModel``, ``create_model``, :31-516) for
-the bf16 torso (``quant=None``). Parameters carry the reference torch
+``Upsample``/``Downsample``, ``UNetModel``, ``create_model``, :31-516), with
+the bf16 torso (``quant=None``) and the int8 torso. Parameters carry the reference torch
 state-dict names (``input_blocks.1.0.in_layers.0.weight``, ...,
 ``out.2.bias``), so the upstream ``.pt`` loads with ``load_state_dict`` and
 ``models/convert.py`` maps them to and from the JAX package's flax tree.
@@ -20,7 +20,20 @@ state-dict names (``input_blocks.1.0.in_layers.0.weight``, ...,
 * Attention is written as ``matmul`` + ``softmax`` as the JAX package left it
   to XLA: legacy per-head [q|k|v] split, q and k scaled by ch**-0.25 before
   the f32 cast, weights cast back to v's dtype.
-* ``spatial_partition`` and the int8 modes are not ported.
+* ``quant`` in {"int8", "int8_static", "int8_calib"}: every ResBlock conv
+  (3x3, and the 1x1 skips while ``quant_1x1``) is a ``QuantConv`` and the
+  attention qkv and proj_out are ``QuantDense`` (``ops/quant.py``, K3 on
+  the card), with f32 master weights; the first and last convs, the norms,
+  softmax and the embeddings stay as in the bf16 torso. INFERENCE ONLY: the
+  int8 layers give zero weight gradients.
+* ``fused_gn_quant`` (the JAX package's ``FREE_HUNCH_FUSED_GN_QUANT=1``,
+  read at ``unet.py:237``): with ``quant="int8"``, the non-resampling
+  ResBlocks run GroupNorm(+FiLM)+SiLU+quantise as one kernel (K2,
+  ``ops/gn_quant.py``) feeding the int8 conv; the FiLM scale and shift fold
+  into a per-sample affine. ``quant_1x1`` stands for
+  ``FREE_HUNCH_QUANT_1X1`` (``unet.py:124``, default on). Both are config
+  fields: the port reads no environment.
+* ``spatial_partition`` is not ported.
 """
 from __future__ import annotations
 
@@ -34,6 +47,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from free_hunch_tpu_torch.ops.groupnorm import groupnorm_silu
+from free_hunch_tpu_torch.ops.quant import QuantConv, QuantDense, _QuantSite
+
+QUANT_MODES = {"int8": "dynamic", "int8_static": "static", "int8_calib": "calib"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +72,13 @@ class UNetConfig:
     use_new_attention_order: bool = False
     dtype: torch.dtype = torch.bfloat16  # torso compute dtype
     remat: bool = True
+    quant: Optional[str] = None     # None (bf16 torso) or a key of QUANT_MODES
+    fused_gn_quant: bool = False    # JAX: FREE_HUNCH_FUSED_GN_QUANT=1
+    quant_1x1: bool = True          # JAX: FREE_HUNCH_QUANT_1X1 (default "1")
+
+    def __post_init__(self):
+        if self.quant is not None and self.quant not in QUANT_MODES:
+            raise ValueError(f"quant={self.quant!r} not in {sorted(QUANT_MODES)}")
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -89,7 +112,18 @@ class GroupNorm32(nn.Module):
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    if isinstance(conv, QuantConv):
+        return conv(x)      # casts to the torso dtype itself
     return conv(x.to(conv.weight.dtype))
+
+
+def _torso_conv(cin: int, cout: int, kernel: int, quant: Optional[str] = None,
+                quant_1x1: bool = True, dtype: torch.dtype = torch.bfloat16) -> nn.Conv2d:
+    """A ResBlock conv: int8 when the torso is quantised (1x1 ones only
+    while ``quant_1x1``), else the plain conv."""
+    if quant is not None and (kernel > 1 or quant_1x1):
+        return QuantConv(cin, cout, kernel, mode=QUANT_MODES[quant], dtype=dtype)
+    return nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
 
 
 def _upsample(x):
@@ -127,17 +161,27 @@ class ResBlock(nn.Module):
     """Residual block with FiLM (scale-shift) time conditioning and optional
     built-in up/down sampling. Layer indices follow the reference module:
     in_layers = [norm, SiLU, conv], emb_layers = [SiLU, linear],
-    out_layers = [norm, SiLU, dropout, conv]; the SiLU sits in the norm."""
+    out_layers = [norm, SiLU, dropout, conv]; the SiLU sits in the norm.
+
+    ``fused`` (int8 dynamic, no resampling, both widths multiples of 32)
+    takes the fused route: each norm and conv pair is one
+    ``QuantConv(x, gn=(gamma_nc, beta_nc))`` call, the norm's modules only
+    holding its parameters."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  use_scale_shift_norm: bool, up: bool = False, down: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, quant: Optional[str] = None,
+                 fused_gn_quant: bool = False, quant_1x1: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.up, self.down, self.remat = up, down, remat
+        self.fused = (quant == "int8" and fused_gn_quant and not (up or down)
+                      and channels % 32 == 0 and out_channels % 32 == 0)
+        conv = dict(quant=quant, quant_1x1=quant_1x1, dtype=dtype)
         self.in_layers = nn.ModuleList([
             GroupNorm32(channels, apply_silu=True), nn.Identity(),
-            nn.Conv2d(channels, out_channels, 3, padding=1)])
+            _torso_conv(channels, out_channels, 3, **conv)])
         self.emb_layers = nn.ModuleList([
             nn.Identity(),
             nn.Linear(emb_channels, 2 * out_channels if use_scale_shift_norm
@@ -145,22 +189,48 @@ class ResBlock(nn.Module):
         self.out_layers = nn.ModuleList([
             GroupNorm32(out_channels, apply_silu=not use_scale_shift_norm),
             nn.Identity(), nn.Identity(),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1)])
+            _torso_conv(out_channels, out_channels, 3, **conv)])
         if out_channels != channels:
-            self.skip_connection = nn.Conv2d(channels, out_channels, 1)
+            self.skip_connection = _torso_conv(channels, out_channels, 1, **conv)
         else:
             self.skip_connection = None
 
+    def _emb_out(self, emb, dtype):
+        lin = self.emb_layers[1]
+        emb_out = lin(F.silu(emb).to(lin.weight.dtype))
+        return emb_out[:, :, None, None].to(dtype)
+
+    def _forward_fused(self, x, emb):
+        """The fused route (JAX ``ResBlock`` :238-286): K2 -> K3 twice, the
+        FiLM scale and shift folded into the second norm's per-sample
+        affine in f32."""
+        n = x.shape[0]
+        norm_in, norm_out = self.in_layers[0], self.out_layers[0]
+        h = self.in_layers[2](x, gn=(norm_in.weight[None].expand(n, -1),
+                                     norm_in.bias[None].expand(n, -1)))
+        emb_out = self._emb_out(emb, h.dtype)
+        if self.use_scale_shift_norm:
+            scale, shift = torch.chunk(emb_out.reshape(n, -1).float(), 2, dim=1)
+            gamma = norm_out.weight[None] * (1.0 + scale)
+            beta = norm_out.bias[None] * (1.0 + scale) + shift
+        else:
+            h = h + emb_out
+            gamma = norm_out.weight[None].expand(n, -1)
+            beta = norm_out.bias[None].expand(n, -1)
+        h = self.out_layers[3](h, gn=(gamma, beta))
+        skip = x if self.skip_connection is None else _conv(x, self.skip_connection)
+        return skip + h
+
     def _forward(self, x, emb):
+        if self.fused:
+            return self._forward_fused(x, emb)
         h = self.in_layers[0](x)
         if self.up:
             h, x = _upsample(h), _upsample(x)
         elif self.down:
             h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
         h = _conv(h, self.in_layers[2])
-        lin = self.emb_layers[1]
-        emb_out = lin(F.silu(emb).to(lin.weight.dtype))
-        emb_out = emb_out[:, :, None, None].to(h.dtype)
+        emb_out = self._emb_out(emb, h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out, 2, dim=1)
             h = self.out_layers[0](h) * (1 + scale) + shift
@@ -179,15 +249,27 @@ class ResBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Full self-attention over spatial positions. qkv/proj_out keep the
-    reference's 1x1 conv1d weights (O, I, 1)."""
+    reference's 1x1 conv1d weights (O, I, 1); on the int8 torso they are
+    ``QuantDense`` layers."""
 
-    def __init__(self, channels: int, num_heads: int, use_new_attention_order: bool):
+    def __init__(self, channels: int, num_heads: int, use_new_attention_order: bool,
+                 quant: Optional[str] = None, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
         self.use_new_attention_order = use_new_attention_order
         self.norm = GroupNorm32(channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = nn.Conv1d(channels, channels, 1)
+        if quant is None:
+            self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+            self.proj_out = nn.Conv1d(channels, channels, 1)
+        else:
+            mode = QUANT_MODES[quant]
+            self.qkv = QuantDense(channels, 3 * channels, mode=mode, dtype=dtype)
+            self.proj_out = QuantDense(channels, channels, mode=mode, dtype=dtype)
+
+    def _dense(self, lin, y):
+        if isinstance(lin, QuantDense):
+            return lin(y)
+        return F.linear(y.to(lin.weight.dtype), lin.weight[..., 0], lin.bias)
 
     def forward(self, x):
         n, c, hh, ww = x.shape
@@ -195,8 +277,7 @@ class AttentionBlock(nn.Module):
         ch = c // heads
         t = hh * ww
         y = self.norm(x).permute(0, 2, 3, 1).reshape(n, t, c)
-        w = self.qkv.weight
-        qkv = F.linear(y.to(w.dtype), w[..., 0], self.qkv.bias)       # (n, t, 3c)
+        qkv = self._dense(self.qkv, y)                                  # (n, t, 3c)
         if self.use_new_attention_order:
             q, k, v = (a.reshape(n, t, heads, ch) for a in torch.chunk(qkv, 3, dim=-1))
         else:
@@ -207,7 +288,7 @@ class AttentionBlock(nn.Module):
         weights = torch.softmax(torch.matmul(qf, kf), dim=-1).to(v.dtype)
         a = torch.matmul(weights, v.permute(0, 2, 1, 3))                # (n, h, t, c)
         a = a.permute(0, 2, 1, 3).reshape(n, t, c)
-        a = F.linear(a, self.proj_out.weight[..., 0], self.proj_out.bias)
+        a = self._dense(self.proj_out, a)
         return x + a.reshape(n, hh, ww, c).permute(0, 3, 1, 2)
 
 
@@ -234,7 +315,13 @@ class UNetModel(nn.Module):
             return heads if cfg.num_head_channels == -1 else ch // cfg.num_head_channels
 
         def res(cin, cout, **kw):
-            return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, remat=cfg.remat, **kw)
+            return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, remat=cfg.remat,
+                            quant=cfg.quant, fused_gn_quant=cfg.fused_gn_quant,
+                            quant_1x1=cfg.quant_1x1, dtype=cfg.dtype, **kw)
+
+        def attn(ch, heads):
+            return AttentionBlock(ch, heads, cfg.use_new_attention_order, quant=cfg.quant,
+                                  dtype=cfg.dtype)
 
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
         if cfg.num_classes is not None:
@@ -249,8 +336,7 @@ class UNetModel(nn.Module):
                 layers = [res(ch, int(mult * mc))]
                 ch = int(mult * mc)
                 if ds in cfg.attention_resolutions:
-                    layers.append(AttentionBlock(ch, n_heads(ch, cfg.num_heads),
-                                                 cfg.use_new_attention_order))
+                    layers.append(attn(ch, n_heads(ch, cfg.num_heads)))
                 self.input_blocks.append(_Block(layers))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
@@ -262,7 +348,7 @@ class UNetModel(nn.Module):
 
         self.middle_block = _Block([
             res(ch, ch),
-            AttentionBlock(ch, n_heads(ch, cfg.num_heads), cfg.use_new_attention_order),
+            attn(ch, n_heads(ch, cfg.num_heads)),
             res(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
@@ -272,8 +358,7 @@ class UNetModel(nn.Module):
                 layers = [res(ch + ich, int(mult * mc))]
                 ch = int(mult * mc)
                 if ds in cfg.attention_resolutions:
-                    layers.append(AttentionBlock(ch, n_heads(ch, heads_up),
-                                                 cfg.use_new_attention_order))
+                    layers.append(attn(ch, n_heads(ch, heads_up)))
                 if level and i == cfg.num_res_blocks:
                     layers.append(res(ch, ch, up=True) if cfg.resblock_updown
                                   else Upsample(ch, cfg.conv_resample))
@@ -289,12 +374,13 @@ class UNetModel(nn.Module):
         time and label embeddings, every GroupNorm affine and the final out
         conv stay f32 (the JAX package's ``dtype``/``param_dtype`` split).
         Casting once here gives the values the JAX package's per-call cast
-        gives."""
+        gives. The int8 sites keep their f32 master weights, from which the
+        JAX package quantises (``quant.py:288-289``)."""
         keep = [self.time_embed, self.out[2]]
         if self.cfg.num_classes is not None:
             keep.append(self.label_emb)
         f32 = {id(p) for m in keep for p in m.parameters()}
-        f32 |= {id(p) for m in self.modules() if isinstance(m, GroupNorm32)
+        f32 |= {id(p) for m in self.modules() if isinstance(m, (GroupNorm32, _QuantSite))
                 for p in m.parameters()}
         for p in self.parameters():
             if id(p) not in f32:
@@ -328,7 +414,8 @@ def create_model(image_size=256, num_channels=256, num_res_blocks=2, channel_mul
                  num_heads=4, num_head_channels=64, num_heads_upsample=-1,
                  use_scale_shift_norm=True, dropout=0.0, resblock_updown=True,
                  use_fp16=False, use_new_attention_order=False, use_checkpoint=False,
-                 dtype=torch.bfloat16, remat=True, **_unused) -> UNetModel:
+                 dtype=torch.bfloat16, remat=True, quant=None, fused_gn_quant=False,
+                 quant_1x1=True, **_unused) -> UNetModel:
     """Build a UNet from the OpenAI setup-file argument surface."""
     if channel_mult == "" or channel_mult is None:
         channel_mult = {512: (0.5, 1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4),
@@ -344,5 +431,6 @@ def create_model(image_size=256, num_channels=256, num_res_blocks=2, channel_mul
         num_heads=num_heads, num_head_channels=num_head_channels,
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
-        use_new_attention_order=use_new_attention_order, dtype=dtype, remat=remat)
+        use_new_attention_order=use_new_attention_order, dtype=dtype, remat=remat,
+        quant=quant, fused_gn_quant=fused_gn_quant, quant_1x1=quant_1x1)
     return UNetModel(cfg)

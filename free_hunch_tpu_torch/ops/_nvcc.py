@@ -2,8 +2,11 @@
 with a plain C interface, bound with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, where the
-hash covers the source and the flags, so an edited source rebuilds and a
-stale library is never loaded. Builds happen at first use, never at import.
+hash covers the source, the shared headers ``csrc/*.cuh`` and the flags, so
+an edited source or header rebuilds and a stale library is never loaded.
+Builds happen at first use, never at import; ``build_all`` starts one
+``nvcc`` per source together, so the sources build in about the time of the
+slowest one.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -38,29 +41,68 @@ def _nvcc() -> str:
                        "from csrc/ at first use and need the CUDA toolkit")
 
 
+def sources() -> List[str]:
+    """The kernel sources, by name (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> Optional[dict]:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns
-    {"seconds": wall time, "ptxas": compiler report} when it compiled, else
-    None. Raises with the compiler output on failure."""
+def _start(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library exists;
+    returns (process, temporary output, library, start time) or None."""
     out = library_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out, time.perf_counter()
+
+
+def _finish(name: str, started) -> dict:
+    proc, tmp, out, t0 = started
+    report, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
+                           f"(exit {proc.returncode}):\n{report}")
     os.replace(tmp, out)
-    return {"seconds": time.perf_counter() - t0, "ptxas": proc.stdout}
+    return {"seconds": time.perf_counter() - t0, "ptxas": report}
+
+
+def build_all(names: Optional[List[str]] = None) -> Dict[str, Optional[dict]]:
+    """Compile the named sources (default: every ``csrc/*.cu``), one
+    ``nvcc`` each, all started together. Returns {name: {"seconds": wall
+    time of that build, "ptxas": compiler report}, or None where the library
+    already existed}. Waits for every build, then raises with the compiler
+    output of the first that failed."""
+    names = sources() if names is None else list(names)
+    started = {n: _start(n) for n in names}
+    reports, failure = {}, None
+    for n in names:
+        if started[n] is None:
+            reports[n] = None
+            continue
+        try:
+            reports[n] = _finish(n, started[n])
+        except RuntimeError as e:
+            failure = failure or e
+    if failure is not None:
+        raise failure
+    return reports
+
+
+def build(name: str) -> Optional[dict]:
+    """Compile ``csrc/<name>.cu`` unless its library exists (see
+    ``build_all``)."""
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 """Shared fixtures of the port parity tests (tests/test_torch_*.py): the
 32 px f32 UNet of tests/test_sampler_e2e.py with identical weights in the
-JAX package and in the port."""
+JAX package and in the port, on the bf16/f32 torso or an int8 one."""
 import functools
 
 import jax
@@ -51,3 +51,21 @@ def tiny_pair():
     tm.load_state_dict(state_dict_from_flax(params, cfg))
     tm.eval().requires_grad_(False)
     return jm, jax.tree.map(jnp.asarray, params), tm
+
+
+def quant_pair(quant, fused=False, dtype="f32", remat=False, quant_1x1=True):
+    """(jax model, flax params, torch model) of ``tiny_pair``'s weights on
+    an int8 torso (``quant``), in f32 or bf16. ``fused``: the port's
+    ``fused_gn_quant``, the JAX package's FREE_HUNCH_FUSED_GN_QUANT=1;
+    ``quant_1x1=False``: the JAX package's FREE_HUNCH_QUANT_1X1=0. The caller
+    sets those switches while the JAX model traces."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    _, params, ref = tiny_pair()
+    jm = JUNet(JConfig(**tiny_cfg_kwargs(), dtype=jdt, remat=False, quant=quant))
+    cfg = UNetConfig(**tiny_cfg_kwargs(), dtype=tdt, remat=remat, quant=quant,
+                     fused_gn_quant=fused, quant_1x1=quant_1x1)
+    tm = UNetModel(cfg)
+    tm.load_state_dict(ref.state_dict())
+    tm.eval().requires_grad_(False)
+    return jm, params, tm

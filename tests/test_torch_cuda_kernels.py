@@ -45,3 +45,161 @@ def test_kernel_matches_plain_on_the_card(shape, dtype, silu):
     gn.groupnorm_silu(xs, g, b, 32, 1e-5, silu).square().sum().backward()
     gn.groupnorm_silu_plain(xr, g, b, 32, 1e-5, silu).square().sum().backward()
     torch.testing.assert_close(xs.grad, xr.grad, rtol=1e-4, atol=1e-5)
+
+
+# -- K2: GroupNorm + affine + SiLU + int8 quantise (csrc/gn_quant.cu) ---------
+
+def _gn_quant_inputs(shape, dtype, gen, offset=0.5):
+    n, c = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + offset).to(dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda") * 0.2 + 1
+    b = torch.randn((n, c), generator=gen, device="cuda") * 0.2
+    return x, g, b
+
+
+def check_gn_quant(x, g, b):
+    """K2 against its plain version: the scales to 1e-6 relative, the codes
+    equal except where y / s lies within rounding of a half-integer (the two
+    compute y with other summation orders for the statistics): there they
+    may differ by one, on at most 1e-4 of the codes. Where a group's |mean|
+    is far above its std, f32 rounding of x - mean in either version is
+    amplified by |mean| / std: the scale tolerance grows to 2 f32 epsilons
+    times that ratio, and more codes lie within rounding of a tie (1e-3 of
+    them where the ratio passes 10). Returns (max code difference, fraction
+    of codes that differ, max relative scale error)."""
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    before = gq.launches
+    xq, s = gq.gn_silu_quant(x, g, b, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert gq.launches == before + 1
+    wq, ws = gq.gn_silu_quant_plain(x, g, b, 32, 1e-5)
+    assert xq.dtype == torch.int8 and xq.shape == x.shape and s.shape == ws.shape
+    rel = float(((s - ws).abs() / ws).max())
+    d = (xq.int() - wq.int()).abs()
+    frac = float((d > 0).float().mean())
+    xf = x.float()
+    ratio = float(xf.mean().abs() / xf.std())
+    assert rel <= max(1e-6, 2 * 2.0 ** -23 * ratio), (rel, ratio)
+    assert int(d.max()) <= 1 and frac <= (1e-3 if ratio > 10 else 1e-4), (int(d.max()), frac)
+    return int(d.max()), frac, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((8, 256, 256, 256), torch.bfloat16, 0.5),
+    ((8, 64, 64, 1024), torch.bfloat16, 0.5),
+    ((8, 8, 8, 2048), torch.bfloat16, 0.5),
+    ((2, 32, 32, 64), torch.float32, 0.5),
+    ((3, 5, 7, 96), torch.float32, 0.5),
+    ((2, 16, 16, 256), torch.float32, 300.0),
+], ids=["256px", "64px_1024", "8px_2048", "f32", "ragged_f32", "mean_over_std"])
+def test_gn_quant_kernel_matches_plain_on_the_card(shape, dtype, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    check_gn_quant(*_gn_quant_inputs(shape, dtype, gen, offset))
+
+
+@pytest.mark.cuda
+def test_gn_quant_kernel_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x, g, b = _gn_quant_inputs((2, 4, 4, 48), torch.bfloat16, gen)
+    with pytest.raises(ValueError, match="multiple"):
+        gq.gn_silu_quant_cuda(x, g, b, 16, 1e-5)
+    x, g, b = _gn_quant_inputs((2, 4, 4, 64), torch.bfloat16, gen)
+    with pytest.raises(TypeError):
+        gq.gn_silu_quant_cuda(x.half(), g, b)
+    shifted = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")[1:1 + x.numel()]
+    with pytest.raises(ValueError, match="aligned"):
+        gq.gn_silu_quant_cuda(shifted.view(x.shape), g, b)
+
+
+# -- K3: the int8 implicit-GEMM convolution (csrc/int8_conv.cu) --------------
+
+def _int8(shape, gen):
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+
+def check_int8_conv(x_shape, k, o, pad, gen):
+    """K3 against its plain version (float64 convolution, exact): the int32
+    sums bitwise equal, and the f32 and bf16 outputs bitwise equal to the
+    plain epilogue on those sums."""
+    from free_hunch_tpu_torch.ops import quant as q
+    n, i = x_shape[0], x_shape[-1]
+    xq, wk = _int8(x_shape, gen), _int8((o, k, k, i), gen)
+    asc = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-3
+    wsc = torch.rand(o, generator=gen, device="cuda") * 0.01 + 1e-3
+    before = q.launches
+    acc = q.int8_conv_cuda(xq, wk, None, None, pad, torch.int32)
+    want = q.int8_conv_plain(xq, wk, None, None, pad, torch.int32)
+    torch.cuda.synchronize()
+    assert q.launches == before + 1
+    assert torch.equal(acc, want)
+    for dt in (torch.float32, torch.bfloat16):
+        got = q.int8_conv_cuda(xq, wk, asc, wsc, pad, dt)
+        assert torch.equal(got, q._epilogue(want, asc, wsc, dt)), dt
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,k,o,pad", [
+    ((8, 32, 32, 512), 3, 256, 1),
+    ((8, 16, 16, 1024), 1, 512, 0),
+    ((8, 64, 1, 256), 1, 768, 0),
+    ((3, 9, 11, 16), 3, 48, 1),
+    ((2, 7, 5, 32), 3, 16, 2),
+    ((2, 6, 6, 48), 1, 32, 0),
+], ids=["3x3", "1x1_skip", "dense_qkv", "ragged", "wide_pad", "small"])
+def test_int8_conv_kernel_matches_plain_on_the_card(x_shape, k, o, pad):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    check_int8_conv(x_shape, k, o, pad, torch.Generator(device="cuda").manual_seed(3))
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        q.int8_conv_cuda(_int8((1, 4, 4, 24), gen), _int8((16, 3, 3, 24), gen), None, None,
+                         1, torch.int32)
+    with pytest.raises(ValueError, match="stride"):
+        q.int8_conv_cuda(_int8((1, 4, 4, 16), gen), _int8((16, 3, 3, 16), gen), None, None,
+                         1, torch.int32, stride=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        q.int8_conv_cuda(_int8((1, 16, 4, 4), gen).permute(0, 2, 3, 1),
+                         _int8((16, 3, 3, 16), gen), None, None, 1, torch.int32)
+
+
+@pytest.mark.cuda
+def test_int8_layers_on_the_card_match_the_cpu():
+    """int8_conv, its pullback and gn_quant_conv on the card (K2, K3)
+    against the same functions on the CPU (plain versions), f32 operands:
+    the int8 codes can differ by one at rounding ties (K2's y, the card's
+    f32 arithmetic), so the outputs agree to a few quantisation steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 8, 8, 64), generator=gen)
+    w = torch.randn((3, 3, 64, 32), generator=gen) * 0.05
+    gm = torch.randn((2, 64), generator=gen) * 0.1 + 1
+    bt = torch.randn((2, 64), generator=gen) * 0.1
+    ct = torch.randn((2, 8, 8, 32), generator=gen)
+    for fn in (lambda u, d: q.int8_conv(u, w.to(d), 1),
+               lambda u, d: q.gn_quant_conv(u, gm.to(d), bt.to(d), w.to(d), 1)):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            u = x.to(dev).requires_grad_(True)
+            y = fn(u, dev)
+            (g,) = torch.autograd.grad(y, u, ct.to(dev))
+            outs.append((y.cpu(), g.cpu()))
+        (y0, g0), (y1, g1) = outs
+        y0, y1 = y0.detach(), y1.detach()
+        torch.testing.assert_close(y1, y0, rtol=0, atol=0.02 * float(y0.abs().max()))
+        torch.testing.assert_close(g1, g0, rtol=0, atol=0.02 * float(g0.abs().max()))
