@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                      # batch 8, 30 Heun steps
     python3 chip_smoke.py --batch 2 --steps 3  # a shorter rehearsal
+    python3 chip_smoke.py --k3                 # K3 alone: host and device
+                                               # time, every small-layer cut
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -13,8 +15,12 @@ Phases, in order; any failure raises and exits non-zero:
    the card, at every distinct shape a main path gives it, with times, the
    bound and the library call of the same function (timed only, never
    used): K1 (GroupNorm+SiLU) at one bf16 forward's shapes, K2 (GroupNorm+
-   affine+SiLU+int8 quantise) and K3 (int8 convolution) at one fused-int8
-   forward's shapes.
+   affine+SiLU+int8 quantise) at one fused-int8 forward's shapes and K3
+   (int8 convolution) at every shape of a fused-int8 guided call: the
+   forward, the remat recomputes and the int8 pullbacks, summed per forward
+   and per guided call. Times are eager, calls back to back; K3 and its
+   yardsticks are also timed as CUDA graphs (the card's time alone), and
+   K3's host time to issue a call is read.
 3. reference: 32 px Free Hunch slices on the card (kernels) against the same
    slices on the CPU (plain versions), same weights and inputs: the f32
    torso, the fused int8 torso, and the static int8 torso calibrated on each
@@ -94,19 +100,56 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events,
-    after one warm-up call."""
+def time_ms(fn, reps: int, graph: bool = False) -> float:
+    """Mean time of ``fn`` over ``reps`` calls, by CUDA events, after one
+    warm-up call. Eager (the default, as every kernel of the ``kernels``
+    line is timed): the calls back to back, so a call whose launches take
+    the host longer than the card's work measures the host. With ``graph``
+    the ``reps`` calls are captured in one CUDA graph and its replay is
+    timed: the card's time alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    g.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / reps
+    del g
+    torch.cuda.empty_cache()
+    return ms
+
+
+def host_us(fn, reps: int, batches: int = 1) -> float:
+    """Host time to issue one call of ``fn``, in microseconds: ``reps``
+    calls back to back on the host clock, up to the last call's return (the
+    card runs them asynchronously), after a warm-up call; the median of
+    ``batches`` such batches, as the host's clock varies more than the
+    card's."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per_call.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per_call))
 
 
 def zero_counts():
@@ -275,38 +318,65 @@ def gn_kernel_phase(forward_shapes: Counter) -> dict:
 
 def int8_shapes_of_forward(model, batch: int, res: int, dev):
     """K2 shapes (NHWC shape, dtype) and K3 shapes (input, weights, pad,
-    output dtype) -> calls, over one no-grad forward of the int8 model: the
-    wrappers are wrapped for that forward only. Checks that the forward
-    launched each kernel once per call."""
+    output dtype) -> calls, over one no-grad forward of the int8 model, and
+    the K3 calls of a guided call's vjp: a forward with grad, then the
+    pullback with respect to the input, whose K3 calls are the remat
+    recomputes and the int8 pullbacks (``q._int8_pullback``). The wrappers
+    are wrapped for those passes only. Checks that every pass launched each
+    kernel once per call and that the vjp made one pullback per int8
+    module. Returns (K2 forward, K3 forward, K3 remat, K3 pullback)."""
     k2, k3 = Counter(), Counter()
-    orig2, orig3 = gq.gn_silu_quant_cuda, q.int8_conv_cuda
+    remat, pullback = Counter(), Counter()
+    phase = {"k2": k2, "k3": k3}
+    orig2, orig3, orig_pb = gq.gn_silu_quant_cuda, q.int8_conv_cuda, q._int8_pullback
 
     def rec2(x, gamma, beta, groups=32, eps=1e-5):
-        k2[(tuple(x.shape), x.dtype)] += 1
+        phase["k2"][(tuple(x.shape), x.dtype)] += 1
         return orig2(x, gamma, beta, groups, eps)
 
     def rec3(xq, wk, ascale, wscale, pad, out_dtype=torch.float32, stride=1):
-        k3[(tuple(xq.shape), tuple(wk.shape), pad, out_dtype)] += 1
+        phase["k3"][(tuple(xq.shape), tuple(wk.shape), pad, out_dtype)] += 1
         return orig3(xq, wk, ascale, wscale, pad, out_dtype, stride)
 
+    def rec_pb(*args):
+        phase["k3"] = pullback
+        try:
+            return orig_pb(*args)
+        finally:
+            phase["k3"] = remat
+
+    x = torch.zeros((batch, 3, res, res), device=dev)
+    t = torch.full((batch,), 500.0, device=dev)
     before = counts()
-    gq.gn_silu_quant_cuda, q.int8_conv_cuda = rec2, rec3
+    gq.gn_silu_quant_cuda, q.int8_conv_cuda, q._int8_pullback = rec2, rec3, rec_pb
     try:
         with torch.no_grad():
-            model(torch.zeros((batch, 3, res, res), device=dev),
-                  torch.full((batch,), 500.0, device=dev))
+            model(x, t)
+        torch.cuda.synchronize()
+        after = counts()
+        phase["k2"], phase["k3"] = Counter(), Counter()
+        xg = x.requires_grad_(True)
+        out = model(xg, t)
+        phase["k3"] = remat
+        torch.autograd.grad(out, xg, torch.ones_like(out))
         torch.cuda.synchronize()
     finally:
-        gq.gn_silu_quant_cuda, q.int8_conv_cuda = orig2, orig3
-    after = counts()
+        gq.gn_silu_quant_cuda, q.int8_conv_cuda, q._int8_pullback = orig2, orig3, orig_pb
     n2, n3 = sum(k2.values()), sum(k3.values())
     if (n2, n3) != (after["gn_silu_quant"] - before["gn_silu_quant"],
                     after["int8_conv"] - before["int8_conv"]) or not (n2 and n3):
         raise AssertionError(f"one int8 forward: {n2} K2 and {n3} K3 calls, launches "
                              f"{before} -> {after}")
+    n_int8 = sum(isinstance(m, (q.QuantConv, q.QuantDense)) for m in model.modules())
+    n_remat, n_pb = sum(remat.values()), sum(pullback.values())
+    if n_pb != n_int8 or counts()["int8_conv"] - after["int8_conv"] != n3 + n_remat + n_pb:
+        raise AssertionError(f"one vjp: {n_pb} pullbacks for {n_int8} int8 modules, "
+                             f"{n_remat} recomputes")
     say(f"one fused-int8 UNet forward at batch {batch}: {n2} K2 launches at {len(k2)} "
-        f"distinct shapes, {n3} K3 launches at {len(k3)} distinct shapes")
-    return k2, k3
+        f"distinct shapes, {n3} K3 launches at {len(k3)} distinct shapes; its vjp: "
+        f"{n_remat} K3 remat recomputes, {n_pb} K3 pullbacks at {len(pullback)} "
+        f"distinct shapes")
+    return k2, k3, remat, pullback
 
 
 def check_gn_quant(shape, dtype, gen, reps=20):
@@ -363,29 +433,41 @@ def check_int8_conv(xs, ws, pad, out_dtype, gen, reps=10):
                              f"{int((acc - want).abs().max())}")
     if not torch.equal(out, q._epilogue(want, asc, wsc, out_dtype)):
         raise AssertionError(f"int8_conv kernel {xs} x {ws}: epilogue not bitwise equal")
-    ms = time_ms(lambda: q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype), reps)
+    # eager times, as every kernel of the kernels line is timed, and as CUDA
+    # graphs: the card's time without the host's; the host's time to issue a call
+    k3 = lambda: q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype)  # noqa: E731
+    ms, graph_ms = time_ms(k3, reps), time_ms(k3, reps, graph=True)
+    host = host_us(k3, reps, batches=3)
     plain_ms = time_ms(lambda: q.int8_conv_plain(xq, wk, asc, wsc, pad, out_dtype), 2)
     cols = im2col(xq, kh, kw, pad)
     bmat = wk.reshape(o, -1).t()
     try:
         library_ms = time_ms(lambda: torch._int_mm(cols, bmat), reps)
+        library_graph_ms = time_ms(lambda: torch._int_mm(cols, bmat), reps, graph=True)
     except RuntimeError as e:
         say(f"    torch._int_mm refused {tuple(cols.shape)} x {tuple(bmat.shape)}: {e}")
-        library_ms = None
+        library_ms = library_graph_ms = None
     del cols
     xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)
     wb = wk.permute(0, 3, 1, 2).to(torch.bfloat16)
     cudnn_ms = time_ms(lambda: F.conv2d(xb, wb, padding=pad), reps)
+    cudnn_graph_ms = time_ms(lambda: F.conv2d(xb, wb, padding=pad), reps, graph=True)
     m = acc.shape[0] * acc.shape[1] * acc.shape[2]
     ops = 2 * m * o * kh * kw * xs[-1]
     nbytes = xq.numel() + wk.numel() + m * o * out.element_size() + 4 * (n + o)
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                cudnn_ms=cudnn_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                bound_ms=max(bytes_ms, ops_ms), tops=ops / ms / 1e9)
+    plan = q.int8_conv_plan(n, xs[1], xs[2], xs[3], o, kh, kw, pad,
+                            torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, host_us=host, plain_ms=plain_ms,
+                library_ms=library_ms, library_graph_ms=library_graph_ms, cudnn_ms=cudnn_ms,
+                cudnn_graph_ms=cudnn_graph_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms), tops=ops / ms / 1e9,
+                graph_tops=ops / graph_ms / 1e9,
+                cut=f"{plan.bm}x{plan.bn} tiles x {plan.splits} K splits = {plan.units} units")
 
 
-def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter):
+def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter, k3_remat: Counter,
+                      k3_pullback: Counter):
     gen = torch.Generator(device="cuda").manual_seed(1)
     say("gn_silu_quant kernel (K2) vs plain, one fused-int8 forward per distinct "
         "shape (calls x ms; codes equal except ties, scales to 1e-6):")
@@ -401,33 +483,129 @@ def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter):
     say(f"  K2 sum over the {sum(k2_shapes.values())} calls of one forward: kernel "
         f"{e2['ms']:.3f} ms, plain {e2['plain_ms']:.3f} ms, bound {e2['bound_ms']:.3f} ms "
         f"({e2['bound_by']}); no single PyTorch call computes it (library: none)")
-    say("int8_conv kernel (K3) vs plain, one fused-int8 forward per distinct shape "
-        "(calls x ms; int32 sums and epilogue bitwise):")
-    rows = []
-    for (xs, ws, pad, odt), calls in sorted(k3_shapes.items(),
-                                            key=lambda kv: -np.prod(kv[0][0]) * kv[0][1][0]):
-        r = check_int8_conv(xs, ws, pad, odt, gen)
-        rows.append((calls, r))
-        lib = "refused" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        say(f"    {calls:3d} x {xs} * {ws} pad {pad} -> {str(odt)[6:]}: kernel "
-            f"{r['ms']:.4f} ({r['tops']:.0f} TOP/s) plain {r['plain_ms']:.4f} _int_mm "
-            f"{lib} cudnn_bf16 {r['cudnn_ms']:.4f} bound {r['bound_ms']:.4f}")
-    have_lib = all(r["library_ms"] is not None for _, r in rows)
+    say("int8_conv kernel (K3) vs plain at every distinct shape of a guided call "
+        "(forward, remat recompute, pullback: calls each; int32 sums and epilogue bitwise; "
+        "ms per call, eager = calls back to back, graph = a CUDA graph's replay; host = "
+        "the host's time to issue one call):")
+    rows = {}
+    for key in sorted(set(k3_shapes) | set(k3_pullback),
+                      key=lambda kv: (kv in k3_pullback, -np.prod(kv[0]) * kv[1][0])):
+        xs, ws, pad, odt = key
+        r = rows[key] = check_int8_conv(xs, ws, pad, odt, gen)
+        lib = "refused" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} (graph {r['library_graph_ms']:.4f})"
+        say(f"    {k3_shapes[key]:3d}+{k3_remat[key]:2d}+{k3_pullback[key]:2d} x {xs} * {ws} "
+            f"pad {pad} -> {str(odt)[6:]}: kernel eager {r['ms']:.4f} ({r['tops']:.0f} TOP/s), "
+            f"graph {r['graph_ms']:.4f} ({r['graph_tops']:.0f} TOP/s), host "
+            f"{r['host_us']:.1f} us; plain {r['plain_ms']:.4f} _int_mm {lib} cudnn_bf16 "
+            f"{r['cudnn_ms']:.4f} (graph {r['cudnn_graph_ms']:.4f}) bound "
+            f"{r['bound_ms']:.4f}; {r['cut']}")
+    lib_keys = ("library_ms", "library_graph_ms")
+    have_lib = all(r["library_ms"] is not None for r in rows.values())
     if not have_lib:
-        for _, r in rows:
-            r["library_ms"] = 0.0
-    e3 = sum_entry(K3_ENTRY, rows, ("ms", "plain_ms", "library_ms", "cudnn_ms"))
+        for r in rows.values():
+            r.update(dict.fromkeys(lib_keys, 0.0))
+    keys = ("ms", "graph_ms", "host_us", "plain_ms", "cudnn_ms", "cudnn_graph_ms") + lib_keys
+    e3 = sum_entry(K3_ENTRY, [(c, rows[k]) for k, c in k3_shapes.items()], keys)
+    guided = Counter(k3_shapes) + Counter(k3_remat) + Counter(k3_pullback)
+    eg = sum_entry(K3_ENTRY, [(c, rows[k]) for k, c in guided.items()], keys)
     if not have_lib:
-        e3["library_ms"] = None
-    lib = "n/a" if e3["library_ms"] is None else f"{e3['library_ms']:.3f}"
-    say(f"  K3 sum over the {sum(k3_shapes.values())} calls of one forward: kernel "
-        f"{e3['ms']:.3f} ms, plain {e3['plain_ms']:.3f} ms, _int_mm on im2col {lib} ms, "
-        f"bf16 cuDNN conv {e3['cudnn_ms']:.3f} ms, bound {e3['bound_ms']:.3f} ms "
-        f"({e3['bound_by']}: {e3['ops_ms']:.3f} ms of int8 operations at "
-        f"{INT8_OP_PER_S / 1e12:.0f} TOP/s, {e3['bytes_ms']:.3f} ms of bytes)")
+        for e in (e3, eg):
+            e.update(dict.fromkeys(lib_keys))
+    for label, e, calls in (("one forward", e3, sum(k3_shapes.values())),
+                            ("one guided call", eg, sum(guided.values()))):
+        lib = "n/a" if e["library_ms"] is None else \
+            f"{e['library_ms']:.3f} ms (graph {e['library_graph_ms']:.3f} ms)"
+        say(f"  K3 sum over the {calls} calls of {label}: kernel eager {e['ms']:.3f} ms (graph "
+            f"{e['graph_ms']:.3f} ms; the host issues them in {e['host_us'] / 1e3:.3f} ms), "
+            f"plain {e['plain_ms']:.3f} ms, _int_mm on im2col {lib}, bf16 cuDNN conv "
+            f"{e['cudnn_ms']:.3f} ms (graph {e['cudnn_graph_ms']:.3f} ms), bound "
+            f"{e['bound_ms']:.3f} ms ({e['bound_by']}: {e['ops_ms']:.3f} ms of int8 operations "
+            f"at {INT8_OP_PER_S / 1e12:.0f} TOP/s, {e['bytes_ms']:.3f} ms of bytes)")
     keep = list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms"]
-    return {k: e2[k] for k in keep}, {k: e3[k] for k in keep}
+    # K3 also carries its time and _int_mm's as CUDA graphs: the card's time alone
+    return ({k: e2[k] for k in keep},
+            {k: e3[k] for k in keep + ["graph_ms", "library_graph_ms"]})
+
+
+# K3 alone (``--k3``), at shapes of the 256 px UNet at batch 8: the largest
+# forward call, a 32 px 3x3, an 8 px 3x3 that splits K and an 8 px attention
+# qkv product ...
+K3_PROBES = (((8, 256, 256, 512), (256, 3, 3, 512), 1),
+             ((8, 32, 32, 512), (512, 3, 3, 512), 1),
+             ((8, 8, 8, 1024), (1024, 3, 3, 1024), 1),
+             ((8, 64, 1, 1024), (3072, 1, 1, 1024), 0))
+# ... and the 8 and 16 px shapes whose cuts the planner weighs, forward and
+# pullback, with the K splits tried
+K3_CUT_SHAPES = (((8, 8, 8, 1024), (1024, 3, 3, 1024), 1),
+                 ((8, 8, 8, 2048), (1024, 3, 3, 2048), 1),
+                 ((8, 16, 16, 1024), (1024, 3, 3, 1024), 1),
+                 ((8, 64, 1, 1024), (1024, 1, 1, 1024), 0),
+                 ((8, 64, 1, 1024), (3072, 1, 1, 1024), 0),
+                 ((8, 8, 8, 1024), (2048, 1, 1, 1024), 0))
+K3_SPLITS = (1, 2, 4, 8, 9, 16)
+
+
+def k3_phase():
+    """K3 alone, bf16 output: at each probe shape the host's time to issue
+    one call of the wrapper ``q.int8_conv_cuda`` and of the layer as the
+    model calls it (``q.int8_conv``: dynamic quantisation of a bf16 input,
+    then K3), and the card's time, eager and as a CUDA graph. It uses only
+    functions that every tree of the port since K3 has, so a copy of this
+    script beside an older tree measures that tree. Then, where the tree
+    can force K3's cut, every cut of ``K3_CUT_SHAPES``: its device time as
+    a CUDA graph, held bitwise to the planner's cut; ``int8_conv_plan``'s
+    time model is read off this table."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # the layer issues about a dozen kernels a call: 50 calls stay well inside
+    # the launch queue, so the host never waits for the card while timed
+    say("K3 alone, bf16 out, per call (host: time to issue it, the median of 7 batches of "
+        "100 calls, 50 of the layer; eager: calls back to back; graph: a CUDA graph's "
+        "replay):")
+    for xs, ws, pad in K3_PROBES:
+        xq = torch.randint(-127, 128, xs, generator=gen, device="cuda", dtype=torch.int8)
+        wk = torch.randint(-127, 128, ws, generator=gen, device="cuda", dtype=torch.int8)
+        asc = torch.rand(xs[0], generator=gen, device="cuda") + 0.1
+        wsc = torch.rand(ws[0], generator=gen, device="cuda") + 0.1
+        w = torch.randn((ws[1], ws[2], ws[3], ws[0]), generator=gen, device="cuda") * 0.05
+        qw = q.prepare_conv_weight(w)
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        k3 = lambda: q.int8_conv_cuda(xq, wk, asc, wsc, pad, torch.bfloat16)  # noqa: E731
+        layer = lambda: q.int8_conv(x, w, pad, qw)  # noqa: E731
+        with torch.no_grad():
+            say(f"  {xs} * {ws} pad {pad}: K3 host {host_us(k3, 100, 7):.2f} us, eager "
+                f"{time_ms(k3, 20) * 1e3:.2f} us, graph {time_ms(k3, 20, graph=True) * 1e3:.2f} "
+                f"us; layer (quantise + K3) host {host_us(layer, 50, 7):.2f} us, eager "
+                f"{time_ms(layer, 20) * 1e3:.2f} us")
+    if not hasattr(q, "_int8_conv_launch"):
+        say("  this tree cannot force K3's cut: no table of cuts")
+        return
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"every cut of the 8 and 16 px shapes on {sms} SMs, bf16 out (device time as a CUDA "
+        f"graph; each output bitwise equal to the planner's cut's):")
+    for xs, ws, pad in K3_CUT_SHAPES:
+        xq = torch.randint(-127, 128, xs, generator=gen, device="cuda", dtype=torch.int8)
+        wk = torch.randint(-127, 128, ws, generator=gen, device="cuda", dtype=torch.int8)
+        asc = torch.rand(xs[0], generator=gen, device="cuda") + 0.1
+        wsc = torch.rand(ws[0], generator=gen, device="cuda") + 0.1
+        plan = q.int8_conv_plan(*xs, ws[0], ws[1], ws[2], pad, sms)
+        want = q.int8_conv_cuda(xq, wk, asc, wsc, pad, torch.bfloat16)
+        ops = 2 * xs[0] * xs[1] * xs[2] * ws[0] * ws[1] * ws[2] * xs[3]  # "same" padding
+        for bn in (256, 128):
+            for splits in K3_SPLITS:
+                if ws[0] % bn or splits > plan.k_blocks:
+                    continue
+                call = lambda: q._int8_conv_launch(xq, wk, asc, wsc, pad,  # noqa: E731
+                                                   torch.bfloat16, (bn, splits))
+                if not torch.equal(call(), want):
+                    raise AssertionError(f"K3 {xs} * {ws}: cut ({bn}, {splits}) differs from "
+                                         f"the planner's")
+                us = time_ms(call, 20, graph=True) * 1e3
+                units = plan.m_tiles * (ws[0] // bn) * splits
+                say(f"    {xs} * {ws} pad {pad}: 128x{bn} tiles x {splits} splits = {units} "
+                    f"units: {us:.2f} us ({ops / us / 1e6:.0f} TOP/s)"
+                    + (" <- planner" if (bn, splits) == (plan.bn, plan.splits) else ""))
 
 
 # -- phases 3 and 4: the slices ----------------------------------------------
@@ -739,7 +917,7 @@ def int8_reference_phase(seed: int, card: str = "cuda"):
 
 
 KERNEL_FAMILIES = (
-    ("K3 int8_conv (csrc/int8_conv.cu)", ("int8_conv_kernel",)),
+    ("K3 int8_conv and its split-K epilogue (csrc/int8_conv.cu)", ("int8_conv",)),
     ("K2b/K2c gn_silu_quant amax, quantise (csrc/gn_quant.cu)", ("gnq_",)),
     ("K1a/K2a GroupNorm statistics (csrc/gn_stats.cuh)", ("gn_stats", "gn_finalize")),
     ("K1b groupnorm_silu apply (csrc/groupnorm.cu)", ("gn_apply",)),
@@ -934,6 +1112,8 @@ def main(argv=None) -> int:
                     "slice; the first is counted, every one is timed (the int8 slice "
                     "runs once)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k3", action="store_true", help="K3 alone: host and device time of "
+                    "one call, and every cut of the small layers; no model, no result lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -948,6 +1128,10 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = card_facts()
+    if args.k3:
+        k3_phase()
+        say(f"chip_smoke --k3 wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     t0 = time.perf_counter()
     model, model_args = loading.load_model(
         str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16,

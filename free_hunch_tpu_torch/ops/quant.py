@@ -31,6 +31,7 @@ conv weights, (I, O) dense weights.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -99,56 +100,238 @@ def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.T
     return _epilogue(acc, ascale, wscale, out_dtype)
 
 
-def int8_conv_cuda(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
-                   wscale: Optional[torch.Tensor], pad: int,
-                   out_dtype: torch.dtype = torch.float32, stride: int = 1) -> torch.Tensor:
-    """Launch K3. Same arguments as ``int8_conv_plain``; raises on anything
-    the kernel does not take (I or O not a multiple of 16, stride != 1,
-    non-contiguous or unaligned operands, CPU tensors)."""
-    global launches
-    from free_hunch_tpu_torch.ops import _nvcc
+# K3's tiles: 128 output pixels by 256 or 128 output channels, K in blocks of
+# 128 bytes. The planner fills the device's SMs, one block per SM (a block
+# takes 211 KB of shared memory); the wrapper passes it the SM count of the
+# device it launches on.
+_BM, _BK = 128, 128
+# the planner's time model, in microseconds, read off K3's device times on
+# an H100 80GB HBM3 at 700 W (``python3 chip_smoke.py --k3``, its table of
+# cuts; PERF.md section 6): a K block of a 256- or 128-wide tile in steady
+# state, a unit's fixed cost (pipeline fill, epilogue), and the split-K
+# epilogue kernel, fixed plus bytes of the slabs over the rate it reads them at
+_US_PER_K_BLOCK = {256: 0.75, 128: 0.6}
+_US_PER_UNIT = 5.0
+_US_SPLIT_EPILOGUE, _SPLIT_BYTES_PER_US = 1.0, 7e6
 
+
+class Int8ConvPlan(NamedTuple):
+    """How K3 cuts one call: ``m_tiles`` x ``n_tiles`` output tiles of
+    ``bm`` x ``bn``, and the ``k_blocks`` 128-byte K blocks cut into
+    ``splits`` ranges; ``workspace`` int32 elements of split-K partial sums,
+    one output-sized slab per split (0 without a split); ``grid`` persistent
+    blocks, min(units, SMs)."""
+    bm: int
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    k_blocks: int
+    splits: int
+    workspace: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        """Work units of the launch, tiles times K splits: the persistent
+        kernel runs ``grid`` blocks, each taking every grid-th unit."""
+        return self.m_tiles * self.n_tiles * self.splits
+
+    def k_ranges(self, k: int):
+        """The [k0, k1) byte range of K that each split sums, as the kernel
+        cuts it: split z takes blocks [z*KB//splits, (z+1)*KB//splits)."""
+        kb, s = self.k_blocks, self.splits
+        return [(min(k, z * kb // s * _BK), min(k, (z + 1) * kb // s * _BK)) for z in range(s)]
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_conv_plan(n: int, h: int, w: int, i: int, o: int, kh: int, kw: int, pad: int,
+                   sms: int, cut: Optional[Tuple[int, int]] = None) -> Int8ConvPlan:
+    """K3's tile width and K splits for one shape on a device with ``sms``
+    SMs: of 256-wide tiles (where O % 256 == 0) and 128-wide ones, each with
+    1 to KB splits, the cut with the least modelled time (waves of ``sms``
+    units times a unit's time, plus the split-K epilogue); ties go to fewer
+    splits, then wider tiles. So the large layers keep one split, and the 8
+    and 16 px layers, whose tiles fill a fraction of the SMs, split K to
+    fill about one wave: splitting further would start a second wave of
+    short units. ``cut`` = (bn, splits) forces a cut instead, to compare
+    cuts; it raises if the kernel has no such cut of this shape."""
+    m = n * (h + 2 * pad - kh + 1) * (w + 2 * pad - kw + 1)
+    kb = -(-kh * kw * i // _BK)
+    mt = -(-m // _BM)
+    cuts = [(bn, s) for s in range(1, kb + 1) for bn in ((256, 128) if o % 256 == 0 else (128,))]
+    if cut is not None:
+        if cut not in cuts:
+            raise ValueError(f"int8_conv kernel: no cut {cut} (tile width, K splits) of this "
+                             f"shape, which has {kb} K blocks")
+        cuts = [cut]
+    best, best_cost = None, None
+    for bn, s in cuts:
+        nt = -(-o // bn)
+        waves = -(-mt * nt * s // sms)
+        cost = waves * (-(-kb // s) * _US_PER_K_BLOCK[bn] + _US_PER_UNIT)
+        if s > 1:
+            cost += _US_SPLIT_EPILOGUE + 4 * s * m * o / _SPLIT_BYTES_PER_US
+        if best_cost is None or cost < best_cost:
+            best = Int8ConvPlan(_BM, bn, mt, nt, kb, s, s * m * o if s > 1 else 0,
+                                min(mt * nt * s, sms))
+            best_cost = cost
+    return best
+
+
+# negative error codes of csrc/int8_conv.cu
+_K3_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+              -2: "cuTensorMapEncodeTiled refused the weight's tensor map",
+              -3: "no kernel for that cut (tile width, splits)"}
+
+
+class _K3Launch(NamedTuple):
+    """What K3 needs for one weight at one input shape, made once: the cut,
+    the output shape, and the addresses of the C entry point's shape
+    arguments and of the weights' encoded tensor map (both kept alive
+    here)."""
+    plan: Int8ConvPlan
+    out_shape: Tuple[int, int, int, int]
+    shape: ctypes.Array
+    wmap: ctypes.Array
+    shape_ptr: int
+    wmap_ptr: int
+
+
+# K3's launches by (input shape, weight address, weight shape, pad, device):
+# each weight's tensor map is encoded and each shape planned once, not per
+# call. An entry holds only what its key determines (the map holds the
+# weights' address and shape, the plan the shapes and the device's SM
+# count), so it is never stale: a later weight at the same address and of
+# the same shape has the same map.
+_LAUNCHES: dict = {}
+_LAUNCHES_MAX = 4096
+_SMS: dict = {}
+_lib = None
+
+
+def _k3_lib():
+    """The K3 library with its entry points typed."""
+    global _lib
+    if _lib is None:
+        from free_hunch_tpu_torch.ops import _nvcc
+        lib = _nvcc.load("int8_conv")
+        lib.fh_int8_conv_weight_map.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        lib.fh_int8_conv_weight_map.restype = ctypes.c_int
+        lib.fh_int8_conv_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                                      ctypes.c_void_p]
+        lib.fh_int8_conv_forward.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _k3_failed(err: int):
+    return RuntimeError(f"int8_conv kernel launch failed: "
+                        f"{_K3_ERRORS.get(err, f'CUDA error {err}')}")
+
+
+def _k3_launch(x_shape, wk: torch.Tensor, pad: int, device: int,
+               cut: Optional[Tuple[int, int]] = None) -> _K3Launch:
+    """Check one shape, plan its cut (or take ``cut``) for the device's SM
+    count, and encode the weights' tensor map at the cut's tile width."""
+    if len(x_shape) != 4 or wk.dim() != 4:
+        raise ValueError("int8_conv kernel needs contiguous (n, h, w, i) and (o, kh, kw, i)")
+    n, h, w, i = x_shape
+    o, kh, kw, wi = wk.shape
+    ho, wo = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+    if wi != i or i % 16 or o % 16:
+        raise ValueError(f"int8_conv kernel: I={i} (weights {wi}) and O={o} must agree "
+                         f"and be multiples of 16")
+    if ho < 1 or wo < 1 or max(ho, wo) >= 2 ** 15 or n * ho * wo >= 2 ** 31 or \
+            n * h * w * i >= 2 ** 31:
+        raise ValueError(f"int8_conv kernel: shape {tuple(x_shape)} x {tuple(wk.shape)} "
+                         f"pad {pad} out of range")
+    if wk.data_ptr() % 16:
+        raise ValueError("int8_conv kernel needs 16-byte aligned operands")
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = int8_conv_plan(n, h, w, i, o, kh, kw, pad, sms, cut)
+    wmap = ctypes.create_string_buffer(128)      # a CUtensorMap
+    err = _k3_lib().fh_int8_conv_weight_map(wk.data_ptr(), o, kh * kw * i, plan.bn,
+                                             ctypes.addressof(wmap))
+    if err != 0:
+        raise _k3_failed(err)
+    shape = (ctypes.c_int * 11)(n, h, w, i, o, kh, kw, pad, plan.bn, plan.splits, plan.grid)
+    return _K3Launch(plan, (n, ho, wo, o), shape, wmap, ctypes.addressof(shape),
+                     ctypes.addressof(wmap))
+
+
+def _k3_check(xq, wk, ascale, wscale, out_dtype, stride) -> int:
+    """The checks of every call: raises on operands the kernel does not
+    take; returns the output mode."""
     if stride != 1:
         raise ValueError(f"int8_conv kernel is stride 1 only, got stride {stride}")
     if not (xq.is_cuda and wk.device == xq.device):
         raise ValueError("int8_conv_cuda needs CUDA tensors on one device")
     if xq.dtype != torch.int8 or wk.dtype != torch.int8:
         raise TypeError(f"int8_conv kernel takes int8 operands, got {xq.dtype}, {wk.dtype}")
-    if xq.dim() != 4 or wk.dim() != 4 or not (xq.is_contiguous() and wk.is_contiguous()):
+    if not (xq.is_contiguous() and wk.is_contiguous()):
         raise ValueError("int8_conv kernel needs contiguous (n, h, w, i) and (o, kh, kw, i)")
-    if out_dtype not in _OUT_MODES:
-        raise TypeError(f"int8_conv kernel writes int32, f32 or bf16, not {out_dtype}")
-    n, h, w, i = xq.shape
-    o, kh, kw, wi = wk.shape
-    ho, wo = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
-    if wi != i or i % 16 or o % 16:
-        raise ValueError(f"int8_conv kernel: I={i} (weights {wi}) and O={o} must agree "
-                         f"and be multiples of 16")
-    if ho < 1 or wo < 1 or n * ho * wo >= 2 ** 31 or n * h * w * i >= 2 ** 31:
-        raise ValueError(f"int8_conv kernel: shape {tuple(xq.shape)} x {tuple(wk.shape)} "
-                         f"pad {pad} out of range")
-    if xq.data_ptr() % 16 or wk.data_ptr() % 16:
+    if xq.data_ptr() % 16:
         raise ValueError("int8_conv kernel needs 16-byte aligned operands")
-    mode = _OUT_MODES[out_dtype]
+    mode = _OUT_MODES.get(out_dtype)
+    if mode is None:
+        raise TypeError(f"int8_conv kernel writes int32, f32 or bf16, not {out_dtype}")
     if mode:
-        for t, size in ((ascale, n), (wscale, o)):
+        for t, size in ((ascale, xq.shape[0]), (wscale, wk.shape[0])):
             if t is None or t.device != xq.device or t.dtype != torch.float32 or \
                     t.numel() != size or not t.is_contiguous():
                 raise ValueError("ascale (n,) and wscale (o,) must be contiguous f32 "
                                  "on the operands' device")
-    fn = _nvcc.load("int8_conv").fh_int8_conv_forward
-    if fn.argtypes is None:  # ctypes keeps one function object per library
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    out = torch.empty((n, ho, wo, o), device=xq.device, dtype=out_dtype)
-    stream = torch.cuda.current_stream(xq.device).cuda_stream
-    err = fn(xq.data_ptr(), wk.data_ptr(), ascale.data_ptr() if mode else None,
-             wscale.data_ptr() if mode else None, out.data_ptr(), n, h, w, i, o, kh, kw, pad,
-             mode, stream)
+    return mode
+
+
+def _k3_enqueue(xq, rec: _K3Launch, ascale, wscale, mode: int, out_dtype, device: int):
+    global launches
+    out = torch.empty(rec.out_shape, device=xq.device, dtype=out_dtype)
+    ws = torch.empty(rec.plan.workspace, device=xq.device, dtype=torch.int32) \
+        if rec.plan.splits > 1 else None
+    err = _lib.fh_int8_conv_forward(
+        rec.shape_ptr, rec.wmap_ptr, xq.data_ptr(), ascale.data_ptr() if mode else None,
+        wscale.data_ptr() if mode else None, out.data_ptr(),
+        None if ws is None else ws.data_ptr(), mode,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
+        raise _k3_failed(err)
     launches += 1
     return out
+
+
+def int8_conv_cuda(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
+                   wscale: Optional[torch.Tensor], pad: int,
+                   out_dtype: torch.dtype = torch.float32, stride: int = 1) -> torch.Tensor:
+    """Launch K3 as ``int8_conv_plan`` cuts the call. Same arguments as
+    ``int8_conv_plain``; raises on anything the kernel does not take (I or
+    O not a multiple of 16, stride != 1, non-contiguous or unaligned
+    operands, CPU tensors). The plan and the weights' tensor map are made
+    at a weight's first call at an input shape, and reused after."""
+    mode = _k3_check(xq, wk, ascale, wscale, out_dtype, stride)
+    device = xq.get_device()
+    key = (xq.shape, wk.data_ptr(), wk.shape, pad, device)
+    rec = _LAUNCHES.get(key)
+    if rec is None:
+        if len(_LAUNCHES) >= _LAUNCHES_MAX:
+            _LAUNCHES.clear()
+        rec = _LAUNCHES[key] = _k3_launch(xq.shape, wk, pad, device)
+    return _k3_enqueue(xq, rec, ascale, wscale, mode, out_dtype, device)
+
+
+def _int8_conv_launch(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
+                      wscale: Optional[torch.Tensor], pad: int, out_dtype: torch.dtype,
+                      cut: Tuple[int, int]) -> torch.Tensor:
+    """``int8_conv_cuda`` with the cut forced: ``cut`` = (tile width, K
+    splits), to compare cuts; raises if the kernel has no such cut of this
+    shape. Made anew at every call, not kept."""
+    mode = _k3_check(xq, wk, ascale, wscale, out_dtype, 1)
+    device = xq.get_device()
+    rec = _k3_launch(xq.shape, wk, pad, device, cut)
+    return _k3_enqueue(xq, rec, ascale, wscale, mode, out_dtype, device)
 
 
 def int8_conv_nhwc(xq, wk, ascale, wscale, pad, out_dtype):

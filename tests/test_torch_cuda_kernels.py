@@ -123,13 +123,13 @@ def _int8(shape, gen):
     return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
 
 
-def check_int8_conv(x_shape, k, o, pad, gen):
+def check_int8_conv(xq, wk, pad, gen):
     """K3 against its plain version (float64 convolution, exact): the int32
     sums bitwise equal, and the f32 and bf16 outputs bitwise equal to the
-    plain epilogue on those sums."""
+    plain epilogue on those sums. One wrapper call counts one launch, split
+    K and its epilogue kernel included."""
     from free_hunch_tpu_torch.ops import quant as q
-    n, i = x_shape[0], x_shape[-1]
-    xq, wk = _int8(x_shape, gen), _int8((o, k, k, i), gen)
+    n, o = xq.shape[0], wk.shape[0]
     asc = torch.rand(n, generator=gen, device="cuda") * 0.01 + 1e-3
     wsc = torch.rand(o, generator=gen, device="cuda") * 0.01 + 1e-3
     before = q.launches
@@ -144,19 +144,110 @@ def check_int8_conv(x_shape, k, o, pad, gen):
     return acc
 
 
+def _plan(x_shape, wk_shape, pad):
+    from free_hunch_tpu_torch.ops import quant as q
+    n, h, w, i = x_shape
+    o, kh, kw, _ = wk_shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return q.int8_conv_plan(n, h, w, i, o, kh, kw, pad, sms)
+
+
+# (input, kernel size, O, pad, the plan's tile width and whether K is split)
+K3_CASES = {
+    "256_wide_tiles": ((8, 64, 64, 256), 3, 512, 1, 256, False),
+    "128_wide_tiles": ((8, 32, 32, 256), 3, 384, 1, 128, False),
+    "split_k_8px_1024": ((8, 8, 8, 1024), 3, 1024, 1, 256, True),
+    "split_k_8px_2048": ((8, 8, 8, 2048), 3, 1024, 1, 256, True),
+    "1x1_skip": ((8, 16, 16, 1024), 1, 512, 0, 128, True),
+    "dense_qkv": ((8, 64, 1, 256), 1, 768, 0, 128, False),
+    "dense_8px_proj_split": ((8, 64, 1, 1024), 1, 1024, 0, 128, True),
+    "ragged_i16_o48": ((3, 9, 11, 16), 3, 48, 1, 128, False),
+    "ragged_i80_o192": ((2, 13, 7, 80), 3, 192, 1, 128, True),
+    "i48_3x3": ((4, 16, 16, 48), 3, 64, 1, 128, True),
+    "wide_pad": ((2, 7, 5, 32), 3, 16, 2, 128, True),
+    "small_i48": ((2, 6, 6, 48), 1, 32, 0, 128, False),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_shape,k,o,pad", [
-    ((8, 32, 32, 512), 3, 256, 1),
-    ((8, 16, 16, 1024), 1, 512, 0),
-    ((8, 64, 1, 256), 1, 768, 0),
-    ((3, 9, 11, 16), 3, 48, 1),
-    ((2, 7, 5, 32), 3, 16, 2),
-    ((2, 6, 6, 48), 1, 32, 0),
-], ids=["3x3", "1x1_skip", "dense_qkv", "ragged", "wide_pad", "small"])
-def test_int8_conv_kernel_matches_plain_on_the_card(x_shape, k, o, pad):
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_int8_conv_kernel_matches_plain_on_the_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
-    check_int8_conv(x_shape, k, o, pad, torch.Generator(device="cuda").manual_seed(3))
+    x_shape, k, o, pad, bn, split = K3_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xq, wk = _int8(x_shape, gen), _int8((o, k, k, x_shape[-1]), gen)
+    plan = _plan(x_shape, wk.shape, pad)
+    assert (plan.bn, plan.splits > 1) == (bn, split), plan
+    check_int8_conv(xq, wk, pad, gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn,splits", [(256, 1), (128, 1), (256, 3), (128, 8), (256, 72)])
+def test_int8_conv_kernel_cuts_agree_bitwise_on_the_card(bn, splits):
+    """Every cut of one 8 px call (tile width, K splits up to one per K
+    block) gives the same int32 sums and outputs: integer addition is exact
+    in any order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xq, wk = _int8((8, 8, 8, 1024), gen), _int8((1024, 3, 3, 1024), gen)
+    asc = torch.rand(8, generator=gen, device="cuda") * 0.01 + 1e-3
+    wsc = torch.rand(1024, generator=gen, device="cuda") * 0.01 + 1e-3
+    want = q.int8_conv_plain(xq, wk, None, None, 1, torch.int32)
+    cut = (bn, splits)
+    assert torch.equal(q._int8_conv_launch(xq, wk, None, None, 1, torch.int32, cut), want)
+    got = q._int8_conv_launch(xq, wk, asc, wsc, 1, torch.bfloat16, cut)
+    assert torch.equal(got, q._epilogue(want, asc, wsc, torch.bfloat16))
+    with pytest.raises(ValueError, match="no cut"):
+        q._int8_conv_launch(xq, wk, None, None, 1, torch.int32, (bn, 73))
+
+
+@pytest.mark.cuda
+def test_int8_conv_kernel_launch_cache_follows_the_weight():
+    """The plan and the weights' tensor map are made once per weight and
+    input shape: a repeated call reuses them, and a new weight of the same
+    shape at a freed weight's address gets its own sums, not the old ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xq = _int8((2, 8, 8, 64), gen)
+    wk = _int8((32, 3, 3, 64), gen)
+    ptr, entries = wk.data_ptr(), len(q._LAUNCHES)
+    want = q.int8_conv_plain(xq, wk, None, None, 1, torch.int32)
+    for _ in range(2):
+        assert torch.equal(q.int8_conv_cuda(xq, wk, None, None, 1, torch.int32), want)
+    assert len(q._LAUNCHES) == entries + 1
+    del wk
+    wk2 = _int8((32, 3, 3, 64), gen)
+    want2 = q.int8_conv_plain(xq, wk2, None, None, 1, torch.int32)
+    assert not torch.equal(want2, want)
+    assert torch.equal(q.int8_conv_cuda(xq, wk2, None, None, 1, torch.int32), want2)
+    if wk2.data_ptr() == ptr:   # the caching allocator's usual reuse: one entry serves both
+        assert len(q._LAUNCHES) == entries + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,k,o,pad", [
+    ((8, 16, 16, 1024), 3, 512, 1),
+    ((8, 8, 8, 2048), 3, 1024, 1),
+    ((2, 9, 7, 48), 3, 80, 0),
+], ids=["16px", "8px_split_k", "pad0_to_pad2"])
+def test_int8_conv_kernel_pullback_matches_plain_on_the_card(x_shape, k, o, pad):
+    """The int8 pullback's product: the cotangent (n, ho, wo, O) against the
+    flipped, I/O-swapped weights ``wkT`` with padding k-1-pad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, h, w, i = x_shape
+    qw = q.prepare_conv_weight(torch.randn((k, k, i, o), generator=gen, device="cuda"))
+    ho, wo = h + 2 * pad - k + 1, w + 2 * pad - k + 1
+    gq = _int8((n, ho, wo, o), gen)
+    acc = check_int8_conv(gq, qw.wkT, k - 1 - pad, gen)
+    assert acc.shape == (n, h, w, i)
 
 
 @pytest.mark.cuda
@@ -174,6 +265,13 @@ def test_int8_conv_kernel_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         q.int8_conv_cuda(_int8((1, 16, 4, 4), gen).permute(0, 2, 3, 1),
                          _int8((16, 3, 3, 16), gen), None, None, 1, torch.int32)
+    shifted = torch.empty(4 * 4 * 16 + 8, dtype=torch.int8, device="cuda")[1:1 + 256]
+    with pytest.raises(ValueError, match="aligned"):
+        q.int8_conv_cuda(shifted.view(1, 4, 4, 16), _int8((16, 3, 3, 16), gen), None, None,
+                         1, torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        q.int8_conv_cuda(_int8((1, 4, 4, 16), gen).cpu(), _int8((16, 3, 3, 16), gen).cpu(),
+                         None, None, 1, torch.int32)
 
 
 @pytest.mark.cuda
