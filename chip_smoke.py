@@ -5,6 +5,8 @@
     python3 chip_smoke.py --batch 2 --steps 3  # a shorter rehearsal
     python3 chip_smoke.py --k3                 # K3 alone: host and device
                                                # time, every small-layer cut
+    python3 chip_smoke.py --gn                 # K1 and K2 alone: per pass and
+                                               # per call, every forward shape
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -18,9 +20,9 @@ Phases, in order; any failure raises and exits non-zero:
    affine+SiLU+int8 quantise) at one fused-int8 forward's shapes and K3
    (int8 convolution) at every shape of a fused-int8 guided call: the
    forward, the remat recomputes and the int8 pullbacks, summed per forward
-   and per guided call. Times are eager, calls back to back; K3 and its
-   yardsticks are also timed as CUDA graphs (the card's time alone), and
-   K3's host time to issue a call is read.
+   and per guided call. Times are eager, calls back to back; every kernel
+   is also timed as a CUDA graph (the card's time alone), K1's and K2's
+   passes by the profiler, and K3's host time to issue a call is read.
 3. reference: 32 px Free Hunch slices on the card (kernels) against the same
    slices on the CPU (plain versions), same weights and inputs: the f32
    torso, the fused int8 torso, and the static int8 torso calibrated on each
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -152,6 +155,38 @@ def host_us(fn, reps: int, batches: int = 1) -> float:
     return float(np.median(per_call))
 
 
+def kernel_name(key: str) -> str:
+    """A profiler kernel key without namespace, template arguments and
+    parameters: ``gn_stats_kernel`` for ``void (anonymous
+    namespace)::gn_stats_kernel<float, true>(float const*, ...)``."""
+    k = key.replace("(anonymous namespace)::", "")
+    k = re.sub(r"^void\s+", "", k)
+    return re.split(r"[<(]", k, maxsplit=1)[0].split("::")[-1].strip()[:60]
+
+
+def pass_ms(fn, reps: int = 10) -> dict:
+    """The device time of each kernel that one call of ``fn`` launches, in
+    ms per call, by kernel name, read with ``torch.profiler`` over ``reps``
+    calls after a warm-up; empty where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            out[kernel_name(e.key)] += e.self_device_time_total / reps / 1e3
+    return dict(out)
+
+
+def fmt_passes(passes: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in passes.items()) or "not measured"
+
+
 def zero_counts():
     gn.launches = gq.launches = q.launches = 0
 
@@ -217,8 +252,11 @@ def gn_shapes_of_forward(model, batch: int, res: int, dev) -> Counter:
     return seen
 
 
-def check_gn(shape, dtype, silu, gen, reps=20):
-    """Kernel vs plain on one shape; returns the measurements."""
+def check_gn(shape, dtype, silu, gen, reps=20, backward=True):
+    """Kernel vs plain on one shape; returns the measurements: eager ms
+    (calls back to back), the card's ms alone (a CUDA graph's replay), each
+    pass's device ms, the plain version's and the library call's ms and,
+    with ``backward``, the plain-autograd backward's."""
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
@@ -246,24 +284,28 @@ def check_gn(shape, dtype, silu, gen, reps=20):
         lib = lambda: F.silu(F.group_norm(xp, 32, gl, bl, 1e-5))  # noqa: E731
     else:
         lib = lambda: F.group_norm(xp, 32, gl, bl, 1e-5)  # noqa: E731
-    ms = time_ms(lambda: gn.groupnorm_silu_cuda(x, g, b, 32, 1e-5, silu), reps)
+    k1 = lambda: gn.groupnorm_silu_cuda(x, g, b, 32, 1e-5, silu)  # noqa: E731
+    ms, graph_ms, passes = time_ms(k1, reps), time_ms(k1, reps, graph=True), pass_ms(k1)
     plain_ms = time_ms(lambda: gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu),
                        max(2, reps // 4))
     library_ms = time_ms(lib, reps)
     # the guidance vjp's pullback through this call: the autograd.Function's
     # backward, which recomputes the plain version (there is no backward kernel)
-    xg = x.detach().requires_grad_(True)
-    yg = gn.groupnorm_silu(xg, g, b, 32, 1e-5, silu)
-    ct = torch.ones_like(yg)
-    bwd_ms = time_ms(lambda: torch.autograd.grad(yg, xg, ct, retain_graph=True),
-                     max(2, reps // 4))
+    bwd_ms = 0.0
+    if backward:
+        xg = x.detach().requires_grad_(True)
+        yg = gn.groupnorm_silu(xg, g, b, 32, 1e-5, silu)
+        ct = torch.ones_like(yg)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(yg, xg, ct, retain_graph=True),
+                         max(2, reps // 4))
     # each input read once, the output written once
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
     flops = GN_FLOPS_PER_ELEM[silu] * x.numel()
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return dict(shape=shape, dtype=str(dtype).replace("torch.", ""), silu=silu,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bwd_ms=bwd_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms, passes=passes,
+                plain_ms=plain_ms, library_ms=library_ms, bwd_ms=bwd_ms, bytes_ms=bytes_ms,
+                tbps=nbytes / ms / 1e9, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
@@ -273,14 +315,23 @@ def sum_entry(entry: dict, rows, keys) -> dict:
     their calls, summed; the bound's two terms summed apart."""
     tot = {k: 0.0 for k in keys + ("bytes_ms", "ops_ms")}
     err = 0.0
+    passes = Counter()
     for calls, r in rows:
         err = max(err, r["max_abs_err"])
         for k in tot:
             tot[k] += calls * r[k]
+        for k, v in r.get("passes", {}).items():
+            passes[k] += calls * v
     bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    return dict(entry, max_abs_err=err, **{k: tot[k] for k in keys},
-                bound_ms=max(tot["bytes_ms"], tot["ops_ms"]), bound_by=bound_by,
-                bytes_ms=tot["bytes_ms"], ops_ms=tot["ops_ms"])
+    out = dict(entry, max_abs_err=err, **{k: tot[k] for k in keys},
+               bound_ms=max(tot["bytes_ms"], tot["ops_ms"]), bound_by=bound_by,
+               bytes_ms=tot["bytes_ms"], ops_ms=tot["ops_ms"])
+    if any("passes" in r for _, r in rows):
+        # the function's bytes (each input read once, each output written
+        # once) over the eager time: the achieved rate on the least traffic
+        out["passes_ms"] = dict(passes)
+        out["tbps"] = tot["bytes_ms"] * HBM_BYTES_PER_S / 1e12 / tot["ms"]
+    return out
 
 
 def gn_kernel_phase(forward_shapes: Counter) -> dict:
@@ -303,17 +354,21 @@ def gn_kernel_phase(forward_shapes: Counter) -> dict:
         r = check_gn(shape, dtype, silu, gen)
         rows.append((calls, r))
         say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
-            f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} plain {r['plain_ms']:.4f} "
+            f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} (graph {r['graph_ms']:.4f}; "
+            f"{fmt_passes(r['passes'])}; {r['tbps']:.2f} TB/s) plain {r['plain_ms']:.4f} "
             f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} backward "
             f"{r['bwd_ms']:.4f}")
-    e = sum_entry(GN_ENTRY, rows, ("ms", "plain_ms", "library_ms", "bwd_ms"))
+    e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms", "bwd_ms"))
     say(f"  sum over the {sum(forward_shapes.values())} calls of one forward: kernel "
-        f"{e['ms']:.3f} ms, plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} ms, "
+        f"{e['ms']:.3f} ms (graph {e['graph_ms']:.3f} ms; passes "
+        f"{fmt_passes(e['passes_ms'])}; {e['tbps']:.2f} TB/s on the function's bytes), "
+        f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} ms, "
         f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}: {e['bytes_ms']:.3f} ms of bytes at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s, {e['ops_ms']:.3f} ms of f32 operations); "
         f"their backward in the guidance vjp (plain autograd) {e['bwd_ms']:.3f} ms")
-    return {k: e[k] for k in list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by", "library_ms"]}
+    return {k: e[k] for k in list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "graph_ms",
+                                               "passes_ms", "tbps"]}
 
 
 def int8_shapes_of_forward(model, batch: int, res: int, dev):
@@ -379,14 +434,14 @@ def int8_shapes_of_forward(model, batch: int, res: int, dev):
     return k2, k3, remat, pullback
 
 
-def check_gn_quant(shape, dtype, gen, reps=20):
-    """K2 vs plain on one shape: the codes equal except where y / s lies
+def check_gn_quant_once(x, g, b, label):
+    """K2 vs plain on one input: the codes equal except where y / s lies
     within rounding of a half-integer (there: one step, on at most 1e-4 of
-    the codes), the scales to 1e-6 relative."""
-    n, c = shape[0], shape[-1]
-    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
-    g = torch.randn((n, c), generator=gen, device="cuda") * 0.2 + 1
-    b = torch.randn((n, c), generator=gen, device="cuda") * 0.2
+    the codes), the scales to 1e-6 relative. Where the tree has K2's
+    abs-max from the statistics' extremes, the call also equals, bitwise,
+    the call forced through the two-pass path's full abs-max pass. Returns (max code
+    difference, fraction of codes that differ, scale error, samples that
+    took the full pass or None)."""
     xq, s = gq.gn_silu_quant_cuda(x, g, b)
     wq, ws = gq.gn_silu_quant_plain(x, g, b)
     torch.cuda.synchronize()
@@ -394,16 +449,53 @@ def check_gn_quant(shape, dtype, gen, reps=20):
     err, frac = int(d.max()), float((d > 0).float().mean())
     rel = float(((s - ws).abs() / ws).max())
     if err > 1 or frac > 1e-4 or rel > 1e-6:
-        raise AssertionError(f"gn_silu_quant kernel {shape}: code diff {err} on {frac} "
+        raise AssertionError(f"gn_silu_quant kernel {label}: code diff {err} on {frac} "
                              f"of the codes, scale rel err {rel}")
-    ms = time_ms(lambda: gq.gn_silu_quant_cuda(x, g, b), reps)
+    flagged = None
+    if hasattr(gq, "_gn_silu_quant_launch"):
+        fq, fs, flags = gq._gn_silu_quant_launch(x, g, b, 32, 1e-5)
+        full_q, full_s, _ = gq._gn_silu_quant_launch(x, g, b, 32, 1e-5, full=True,
+                                                     path="two-pass")
+        torch.cuda.synchronize()
+        if not (torch.equal(fq, xq) and torch.equal(fs, s)):
+            raise AssertionError(f"gn_silu_quant kernel {label}: two calls differ")
+        if not (torch.equal(full_s, s) and torch.equal(full_q, xq)):
+            raise AssertionError(
+                f"gn_silu_quant kernel {label}: the scale from the extremes differs from "
+                f"the full abs-max pass's on samples {(full_s != s).flatten().nonzero().tolist()}"
+                f" (flags {flags.tolist()})")
+        flagged = int(flags.sum())
+    return err, frac, rel, flagged
+
+
+def check_gn_quant(shape, dtype, gen, reps=20):
+    """K2 vs plain on one shape (``check_gn_quant_once``), then the same
+    with sample 0's affine narrowed and shifted (gamma / 5, beta / 10 -
+    1.28) so that every t of the sample is negative and its abs-max lies in
+    the SiLU's negative lobe, where only the full pass finds it; and K2's
+    times: eager, a CUDA graph's replay, each pass's device time."""
+    n, c = shape[0], shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda") * 0.2 + 1
+    b = torch.randn((n, c), generator=gen, device="cuda") * 0.2
+    err, frac, rel, flagged = check_gn_quant_once(x, g, b, f"{shape}")
+    gneg, bneg = g.clone(), b.clone()
+    gneg[0] *= 0.2
+    bneg[0] = bneg[0] * 0.1 - 1.28
+    err2, frac2, rel2, flagged2 = check_gn_quant_once(x, gneg, bneg,
+                                                      f"{shape} sample 0 negative")
+    k2 = lambda: gq.gn_silu_quant_cuda(x, g, b)  # noqa: E731
+    ms, graph_ms, passes = time_ms(k2, reps), time_ms(k2, reps, graph=True), pass_ms(k2)
     plain_ms = time_ms(lambda: gq.gn_silu_quant_plain(x, g, b), max(2, reps // 4))
     # x read once, the codes written once, the (n, c) affine and the scales
     nbytes = x.numel() * (x.element_size() + 1) + 2 * n * c * 4 + n * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = GNQ_FLOPS_PER_ELEM * x.numel() / F32_FLOP_PER_S * 1e3
-    return dict(max_abs_err=float(err), frac=frac, scale_rel=rel, ms=ms, plain_ms=plain_ms,
-                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms))
+    return dict(max_abs_err=float(max(err, err2)), frac=max(frac, frac2),
+                scale_rel=max(rel, rel2), flagged=(flagged, flagged2), ms=ms,
+                graph_ms=graph_ms, passes=passes, tbps=nbytes / ms / 1e9,
+                plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms))
 
 
 def im2col(xq, kh: int, kw: int, pad: int):
@@ -476,12 +568,16 @@ def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter, k3_remat: Counter,
         r = check_gn_quant(shape, dtype, gen)
         rows.append((calls, r))
         say(f"    {calls:3d} x {shape} {str(dtype)[6:]}: code diff {r['max_abs_err']:.0f} on "
-            f"{r['frac']:.2e}, scale err {r['scale_rel']:.2e}; kernel {r['ms']:.4f} plain "
-            f"{r['plain_ms']:.4f} bound {r['bound_ms']:.4f}")
-    e2 = sum_entry(GNQ_ENTRY, rows, ("ms", "plain_ms"))
+            f"{r['frac']:.2e}, scale err {r['scale_rel']:.2e}, samples through the full "
+            f"abs-max pass {r['flagged']}; kernel {r['ms']:.4f} (graph {r['graph_ms']:.4f}; "
+            f"{fmt_passes(r['passes'])}; {r['tbps']:.2f} TB/s) plain {r['plain_ms']:.4f} "
+            f"bound {r['bound_ms']:.4f}")
+    e2 = sum_entry(GNQ_ENTRY, rows, ("ms", "graph_ms", "plain_ms"))
     e2["library_ms"] = None
     say(f"  K2 sum over the {sum(k2_shapes.values())} calls of one forward: kernel "
-        f"{e2['ms']:.3f} ms, plain {e2['plain_ms']:.3f} ms, bound {e2['bound_ms']:.3f} ms "
+        f"{e2['ms']:.3f} ms (graph {e2['graph_ms']:.3f} ms; passes "
+        f"{fmt_passes(e2['passes_ms'])}; {e2['tbps']:.2f} TB/s on the function's bytes), "
+        f"plain {e2['plain_ms']:.3f} ms, bound {e2['bound_ms']:.3f} ms "
         f"({e2['bound_by']}); no single PyTorch call computes it (library: none)")
     say("int8_conv kernel (K3) vs plain at every distinct shape of a guided call "
         "(forward, remat recompute, pullback: calls each; int32 sums and epilogue bitwise; "
@@ -525,8 +621,99 @@ def int8_kernel_phase(k2_shapes: Counter, k3_shapes: Counter, k3_remat: Counter,
     keep = list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms"]
     # K3 also carries its time and _int_mm's as CUDA graphs: the card's time alone
-    return ({k: e2[k] for k in keep},
+    return ({k: e2[k] for k in keep + ["graph_ms", "passes_ms", "tbps"]},
             {k: e3[k] for k in keep + ["graph_ms", "library_graph_ms"]})
+
+
+def by_resolution(rows) -> str:
+    """Eager ms of one forward's calls by spatial size: 256, 128, 64 and
+    8-32 px, each with its share of the sum."""
+    buckets = Counter()
+    for calls, r in rows:
+        h = r["shape"][1]
+        buckets["8-32 px" if h <= 32 else f"{h} px"] += calls * r["ms"]
+    total = sum(buckets.values())
+    return ", ".join(f"{k} {v:.3f} ms ({v / total:.3f})" for k, v in
+                     sorted(buckets.items(), key=lambda kv: -kv[1]))
+
+
+def two_pass_instead(shape, dtype, quant: bool, gen):
+    """Where the tree plans a call on K1's or K2's one-launch cluster path,
+    the call's times on the two-pass path instead (eager, graph, passes);
+    else None."""
+    if not hasattr(gn, "gn_plan"):
+        return None
+    n, c = shape[0], shape[-1]
+    s = int(np.prod(shape[1:-1]))
+    size = torch.tensor([], dtype=dtype).element_size()
+    if gn.gn_plan(n, s, c, 32, size, gn.device_sms("cuda"), quant).path != "cluster":
+        return None
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    if quant:
+        g = torch.randn((n, c), generator=gen, device="cuda") * 0.2 + 1
+        b = torch.randn((n, c), generator=gen, device="cuda") * 0.2
+        fn = lambda: gq._gn_silu_quant_launch(x, g, b, path="two-pass")  # noqa: E731
+    else:
+        g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+        b = torch.randn(c, generator=gen, device="cuda") * 0.1
+        fn = lambda: gn._groupnorm_launch(x, g, b, 32, 1e-5, True,  # noqa: E731
+                                          path="two-pass")
+    return time_ms(fn, 20), time_ms(fn, 20, graph=True), pass_ms(fn)
+
+
+def gn_phase(batch: int, seed: int):
+    """K1 and K2 alone (``--gn``), at every distinct shape of one forward
+    of the 256 px UNet at ``batch``: K1's of the bf16 torso, K2's of the
+    fused-int8 torso, found by the shape hooks. Each is held to its plain
+    version as in the full run and timed per call (eager, and a CUDA
+    graph's replay: the card's time alone), per pass (the profiler's device
+    time of each kernel it launches) and per forward, beside the plain
+    version, ``group_norm`` + ``silu`` (K1) and the bytes bound. It uses
+    only functions that every K2 tree of the port has, so a copy of this
+    script beside an older tree's checkout measures that tree."""
+    sums = {}
+    for label, quant in (("K1", None), ("K2", "int8")):
+        model, model_args = loading.load_model(
+            str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16, init_random_if_missing=True,
+            rng_seed=seed, remat=True, quant=quant, fused_gn_quant=quant is not None)
+        res = model_args["image_size"]
+        shapes = gn_shapes_of_forward(model, batch, res, "cuda") if quant is None else \
+            int8_shapes_of_forward(model, batch, res, "cuda")[0]
+        del model
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        rows = []
+        say(f"{label} alone at every distinct shape of one forward at batch {batch} (ms per "
+            f"call: eager, graph, and each pass's device time):")
+        for key, calls in sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][0])):
+            if quant is None:
+                shape, dtype, silu = key
+                r = check_gn(shape, dtype, silu, gen, backward=False)
+                extra = f"plain {r['plain_ms']:.4f} group_norm+silu {r['library_ms']:.4f}"
+            else:
+                shape, dtype = key
+                r = dict(check_gn_quant(shape, dtype, gen), shape=shape)
+                extra = (f"code diff {r['max_abs_err']:.0f} on {r['frac']:.2e}, scale err "
+                         f"{r['scale_rel']:.2e}, full-pass samples {r['flagged']}; plain "
+                         f"{r['plain_ms']:.4f}")
+            rows.append((calls, r))
+            say(f"  {calls:3d} x {tuple(shape)} {str(dtype)[6:]}: eager {r['ms']:.4f} graph "
+                f"{r['graph_ms']:.4f} ({fmt_passes(r['passes'])}) {r['tbps']:.3f} TB/s; "
+                f"bound {r['bound_ms']:.4f}; {extra}")
+            alt = two_pass_instead(shape, dtype, quant is not None, gen)
+            if alt:
+                say(f"        on the two-pass path instead: eager {alt[0]:.4f} graph "
+                    f"{alt[1]:.4f} ({fmt_passes(alt[2])})")
+        keys = ("ms", "graph_ms", "plain_ms") + (("library_ms",) if quant is None else ())
+        e = sum_entry({}, rows, keys)
+        sums[label] = e
+        say(f"  {label} sum over the {sum(shapes.values())} calls of one forward: eager "
+            f"{e['ms']:.3f} ms, graph {e['graph_ms']:.3f} ms, passes "
+            f"{fmt_passes(e['passes_ms'])}; {e['tbps']:.3f} TB/s on the function's bytes; "
+            f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}); plain {e['plain_ms']:.3f} ms"
+            + (f"; group_norm+silu {e['library_ms']:.3f} ms" if quant is None else ""))
+        say(f"  {label} eager by resolution: {by_resolution(rows)}")
+    return sums
 
 
 # K3 alone (``--k3``), at shapes of the 256 px UNet at batch 8: the largest
@@ -918,8 +1105,9 @@ def int8_reference_phase(seed: int, card: str = "cuda"):
 
 KERNEL_FAMILIES = (
     ("K3 int8_conv and its split-K epilogue (csrc/int8_conv.cu)", ("int8_conv",)),
-    ("K2b/K2c gn_silu_quant amax, quantise (csrc/gn_quant.cu)", ("gnq_",)),
+    ("K2 gn_silu_quant finalize, amax, quantise (csrc/gn_quant.cu)", ("gnq_",)),
     ("K1a/K2a GroupNorm statistics (csrc/gn_stats.cuh)", ("gn_stats", "gn_finalize")),
+    ("K1/K2 one-launch cluster path (csrc/gn_cluster.cuh)", ("gn_cluster",)),
     ("K1b groupnorm_silu apply (csrc/groupnorm.cu)", ("gn_apply",)),
     ("cuFFT", ("fft",)),
     ("convolutions and matmuls (cuDNN, cuBLAS)",
@@ -1114,6 +1302,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k3", action="store_true", help="K3 alone: host and device time of "
                     "one call, and every cut of the small layers; no model, no result lines")
+    ap.add_argument("--gn", action="store_true", help="K1 and K2 alone: per call and per "
+                    "pass at every distinct shape of one forward; no slice, no result lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -1131,6 +1321,10 @@ def main(argv=None) -> int:
     if args.k3:
         k3_phase()
         say(f"chip_smoke --k3 wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args.gn:
+        gn_phase(args.batch, args.seed)
+        say(f"chip_smoke --gn wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     t0 = time.perf_counter()
     model, model_args = loading.load_model(

@@ -8,14 +8,18 @@ Replaces the TPU kernel ``free_hunch_tpu/ops/pallas_groupnorm.py``
 that file's ``_reference`` (:38-59), with a centred variance instead of the
 TPU kernel's ``E[x^2] - E[x]^2``.
 
-Bound: device-memory bytes (~10 flops per element against 2 or 4 bytes).
-The least traffic is one read of x and one write of y; the kernel reads x
-twice and writes y once (statistics pass, then apply pass), because a whole
-sample's statistics must be complete before any element is normalised.
-Every ``GroupNorm32`` of the UNet lands here: 101 per forward of the 256 px
-model (42 ResBlocks x 2, 16 attention norms, the final norm), the largest on
-the (N, 256*256, 512) bf16 decoder concat. ``chip_smoke.py`` counts the
-bytes of every call of one forward from its shapes and prints the bound.
+Bound: device-memory bytes (~20 instructions per element against 4 or 8
+bytes moved). The least traffic is one read of x and one write of y. A call
+whose sample fits a thread-block cluster's shared memory (the 8-32 px calls
+of the 256 px model) reads x once, in one launch; a larger one reads x
+twice (statistics pass, then apply pass), because a whole sample's
+statistics must be complete before any element is normalised and a sample
+of up to 67 MB cannot stay on chip. ``gn_plan`` chooses the path from the
+shape and says how often each reads x (``reads``). Every ``GroupNorm32`` of
+the UNet lands here: 101 per forward of the 256 px model (42 ResBlocks x 2,
+16 attention norms, the final norm), the largest on the (N, 256*256, 512)
+bf16 decoder concat. ``chip_smoke.py`` counts the bytes of every call of
+one forward from its shapes and prints the bound.
 
 The gradient is the JAX package's ``custom_vjp`` (:147-163): no backward
 kernel; the backward recomputes the plain version under autograd and pulls
@@ -24,15 +28,122 @@ the cotangent back through it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
-# Calls that launched the CUDA kernel sequence (stats, finalize, apply).
-# Plain-version calls on CPU tensors do not count.
+# Calls that launched the CUDA kernel sequence (stats, finalize, apply; or
+# the one cluster kernel). Plain-version calls on CPU tensors do not count.
 launches = 0
 
-_SM_COUNT_H100 = 132
-_MAX_SHARED = 48 * 1024
+# The streaming passes of K1 and K2 (csrc/gn_stats.cuh): blocks of about 256
+# threads, each thread 16 bytes of a row and kUnroll = 4 rows in flight;
+# about four blocks per SM in each pass. K2's chunks hold at least 16 rows,
+# so its per-(chunk, channel) extrema stay a quarter of x's bytes or less.
+_BLOCK_THREADS = 256
+_BLOCKS_PER_SM = 4
+_UNROLL = 4
+_MIN_ROWS_QUANT = 16
+# shared memory a block may take on Hopper (above 48 KB the kernel sets the
+# attribute itself)
+MAX_SHARED = 227 * 1024
+# the one-launch path (csrc/gn_cluster.cuh): a cluster of at most 8 blocks
+# (the portable size) holds a sample, each block its chunk of rows in at
+# most 200 KB of dynamic shared memory (it also holds 20.5 KB of its own)
+CLUSTER_BLOCKS = 8
+CLUSTER_SMEM = 200 * 1024
+_SMS: dict = {}
+
+
+def device_sms(device) -> int:
+    """The SM count of a CUDA device, read once (the planners of K1, K2 and
+    K3 size their grids by it)."""
+    sms = _SMS.get(device)
+    if sms is None:
+        idx = torch.device(device).index
+        idx = torch.cuda.current_device() if idx is None else idx
+        sms = _SMS[device] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return sms
+
+
+class GNPlan(NamedTuple):
+    """How K1 or K2 cuts one call: blocks of ``tx`` x ``ty`` threads (tx =
+    C / vector width, each thread one 16-byte vector of a row), ``chunks``
+    chunks of ``rows`` rows per sample, ``lanes`` lanes per group in the
+    merge of the chunk partials, ``finals`` blocks per sample in K2's
+    finalize; ``smem`` bytes of dynamic shared memory for the statistics
+    pass, ``scratch`` f32 elements of scratch. ``path`` names the launch
+    sequence; ``reads`` counts its reads of x."""
+    tx: int
+    ty: int
+    rows: int
+    chunks: int
+    lanes: int
+    finals: int
+    smem: int
+    scratch: int
+    path: str
+    reads: int
+
+
+@functools.lru_cache(maxsize=4096)
+def gn_plan(n: int, s: int, c: int, groups: int, itemsize: int, sms: int,
+            quant: bool = False, path: Optional[str] = None) -> GNPlan:
+    """K1's (``quant=False``) or K2's plan for n samples of s rows of c
+    channels of ``itemsize`` bytes on a device with ``sms`` SMs. Whole
+    C-wide rows per block, enough thread rows for about 256 threads.
+
+    Where a sample's chunk of ceil(s / 8) rows and the statistics' shared
+    memory fit one block's shared memory, the call takes the one-launch
+    "cluster" path (one cluster of up to 8 blocks a sample; x read once).
+    Otherwise the "two-pass" path (statistics, then one streaming pass over
+    x: K1's apply, K2's quantise; K2's abs-max pass reads x only for a
+    flagged sample): enough chunks per sample for about four blocks per SM
+    (at most 1024), each at least one unrolled step of every thread row
+    (K2: and 16 rows). ``path`` forces a path; the two-pass path forced
+    where the cluster path fits is cut into the cluster path's chunks, so
+    the two give bitwise equal results. Raises where the kernels cannot
+    take the shape."""
+    vec = 16 // itemsize
+    if c % vec or c % groups:
+        raise ValueError(f"groupnorm kernels: C={c} must be a multiple of groups={groups} "
+                         f"and of {vec}")
+    tx = c // vec
+    if tx > 1024:
+        raise ValueError(f"groupnorm kernels: C/{vec} = {tx} > 1024")
+    ty = max(1, _BLOCK_THREADS // tx)
+    part_smem = (2 * ty * c + ty) * 4
+    cl_rows = -(-s // CLUSTER_BLOCKS)
+    cl_smem = cl_rows * c * itemsize + part_smem
+    fits = cl_smem <= CLUSTER_SMEM
+    if path is None:
+        path = "cluster" if fits else "two-pass"
+    if path not in ("cluster", "two-pass") or (path == "cluster" and not fits):
+        raise ValueError(f"groupnorm kernels: no {path} path for ({n}, {s}, {c})")
+    if fits:
+        rows = cl_rows
+    else:
+        want = max(1, -(-_BLOCKS_PER_SM * sms // n))
+        least = max(_UNROLL * ty, _MIN_ROWS_QUANT if quant else 1)
+        rows = max(-(-s // min(want, 1024)), least)
+    p = -(-s // rows)
+    lanes = max(1, min(8, 1024 // groups))
+    if groups > 1024:
+        raise ValueError(f"groupnorm kernels: groups={groups} > 1024")
+    if path == "cluster":
+        return GNPlan(tx, ty, rows, p, lanes, 1, cl_smem, n if quant else 0, path, 1)
+    smem = ((4 if quant else 2) * ty * c + ty) * 4
+    if smem > MAX_SHARED:
+        raise ValueError(f"groupnorm kernels: C={c} needs {smem} bytes of shared memory")
+    scratch = 2 * n * p * groups + 2 * n * groups
+    finals = 1
+    if quant:
+        # K2's finalize: about two blocks per SM, each at least 1024 of the
+        # sample's chunk extremes
+        finals = max(1, min(-(-2 * sms // n), -(-p * c // 1024)))
+        scratch += 2 * n * p * c + n * p + n * finals + n  # extrema, maxima, candidates, flags
+    return GNPlan(tx, ty, rows, p, lanes, finals, smem, scratch, path, 2)
 
 
 def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -60,15 +171,19 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     return y.to(x.dtype)
 
 
-def _plan(n: int, s: int, c: int, vec: int):
-    """Block shape and chunking: whole C-wide rows per block (C / vec
-    threads across, enough rows down for 256 threads) and about four blocks
-    per SM in each of the two streaming passes."""
-    tx = c // vec
-    ty = max(1, 256 // tx)
-    want = max(1, -(-4 * _SM_COUNT_H100 // n))
-    rows = max(-(-s // min(want, 1024)), ty)
-    return ty, rows, -(-s // rows)
+_fn = None
+
+
+def _k1_entry():
+    global _fn
+    if _fn is None:
+        from free_hunch_tpu_torch.ops import _nvcc
+        fn = _nvcc.load("groupnorm").fh_groupnorm_forward
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
 
 
 def groupnorm_silu_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -76,9 +191,13 @@ def groupnorm_silu_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
                         apply_silu: bool = True) -> torch.Tensor:
     """Launch the kernel on a contiguous channels-last (N, ..., C) CUDA
     tensor. Raises on anything the kernel does not take."""
-    global launches
-    from free_hunch_tpu_torch.ops import _nvcc
+    return _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu)
 
+
+def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None):
+    """K1 as ``groupnorm_silu_cuda`` launches it; ``path`` forces a path
+    (see ``gn_plan``), to compare the two."""
+    global launches
     if not x.is_cuda:
         raise ValueError("groupnorm_silu_cuda needs a CUDA tensor")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -87,34 +206,25 @@ def groupnorm_silu_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
         raise ValueError("groupnorm kernel needs a contiguous channels-last tensor")
     n, c = x.shape[0], x.shape[-1]
     s = x.numel() // max(n * c, 1)
-    vec = 8 if x.dtype == torch.bfloat16 else 4
-    if c % groups or c % vec or (c // vec) > 1024:
-        raise ValueError(f"groupnorm kernel: C={c} must be a multiple of "
-                         f"groups={groups} and {vec}, and C/{vec} <= 1024")
-    if groups * 8 > 1024 or s * (c // groups) >= 2 ** 24:
-        raise ValueError(f"groupnorm kernel: groups={groups}, S*C/G="
-                         f"{s * (c // groups)} out of range")
+    if c % groups or s * (c // groups) >= 2 ** 24:
+        raise ValueError(f"groupnorm kernel: C={c} must be a multiple of groups={groups}, "
+                         f"and S*C/G={s * (c // groups)} < 2^24")
     if x.data_ptr() % 16:
         raise ValueError("groupnorm kernel needs a 16-byte aligned input")
     for t in (gamma, beta):
         if t.device != x.device or t.dtype != torch.float32 or \
                 t.shape != (c,) or not t.is_contiguous():
             raise ValueError("gamma/beta must be contiguous f32 (C,) on x's device")
-    ty, rows, p = _plan(n, s, c, vec)
-    if (2 * ty * c + ty) * 4 > _MAX_SHARED:
-        raise ValueError(f"groupnorm kernel: C={c} needs too much shared memory")
-    fn = _nvcc.load("groupnorm").fh_groupnorm_forward
-    if fn.argtypes is None:  # ctypes keeps one function object per library
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
-            [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path=path)
     y = torch.empty_like(x)
-    partial = torch.empty((n, p, groups, 2), device=x.device, dtype=torch.float32)
-    stats = torch.empty((n, groups, 2), device=x.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-             partial.data_ptr(), stats.data_ptr(), n, s, c, groups, rows, p, ty, 8,
-             float(eps), int(apply_silu), int(x.dtype == torch.bfloat16), stream)
+    scratch = torch.empty(plan.scratch, device=x.device, dtype=torch.float32) \
+        if plan.scratch else None
+    err = _k1_entry()(x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(), n, s, c, groups,
+                      plan.rows, plan.chunks, plan.ty, plan.lanes, float(eps),
+                      int(apply_silu), int(plan.path == "cluster"),
+                      int(x.dtype == torch.bfloat16),
+                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: CUDA error {err}")
     launches += 1

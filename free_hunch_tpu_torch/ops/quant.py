@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from free_hunch_tpu_torch.ops.gn_quant import _gn_silu_ref_f32, gn_silu_quant
+from free_hunch_tpu_torch.ops.groupnorm import device_sms
 
 # Calls that launched K3. Plain-version calls on CPU tensors do not count.
 launches = 0
@@ -205,7 +206,6 @@ class _K3Launch(NamedTuple):
 # the same shape has the same map.
 _LAUNCHES: dict = {}
 _LAUNCHES_MAX = 4096
-_SMS: dict = {}
 _lib = None
 
 
@@ -248,10 +248,7 @@ def _k3_launch(x_shape, wk: torch.Tensor, pad: int, device: int,
                          f"pad {pad} out of range")
     if wk.data_ptr() % 16:
         raise ValueError("int8_conv kernel needs 16-byte aligned operands")
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = int8_conv_plan(n, h, w, i, o, kh, kw, pad, sms, cut)
+    plan = int8_conv_plan(n, h, w, i, o, kh, kw, pad, device_sms(device), cut)
     wmap = ctypes.create_string_buffer(128)      # a CUtensorMap
     err = _k3_lib().fh_int8_conv_weight_map(wk.data_ptr(), o, kh * kw * i, plan.bn,
                                              ctypes.addressof(wmap))

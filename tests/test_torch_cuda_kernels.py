@@ -117,6 +117,159 @@ def test_gn_quant_kernel_raises_on_what_it_does_not_take():
         gq.gn_silu_quant_cuda(shifted.view(x.shape), g, b)
 
 
+# -- K1 and K2 at every shape of one 256 px forward; K2's abs-max paths ------
+
+def _forward_shapes():
+    """(route, NHWC shape, itemsize) of each distinct GroupNorm call of one
+    256 px forward at batch 8 (tests/test_torch_gn_plan.py lists them)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from test_torch_gn_plan import norm_calls
+    return sorted(set(norm_calls()), key=lambda k: (k[0], -k[1][1], -k[1][3], k[2]))
+
+
+FORWARD_NORMS = _forward_shapes()
+K2_SHAPES = [s for r, s, _ in FORWARD_NORMS if r == "k2"]
+K1_SHAPES = sorted({(s, z) for _, s, z in FORWARD_NORMS}, key=lambda k: (-k[0][1], -k[0][3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,itemsize", K1_SHAPES,
+                         ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
+                              for s, z in K1_SHAPES])
+def test_kernel_matches_plain_at_every_forward_shape(shape, itemsize):
+    """K1 with and without SiLU at every distinct shape of one forward, on
+    the path its planner takes: two bf16 ulps, or 1e-5 in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    for silu in (True, False):
+        want = gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu)
+        y = gn.groupnorm_silu_cuda(x, g, b, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+        else:
+            ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+            assert float((y.float() - want.float()).abs().max()) <= 2 * float(ulp)
+
+
+def _full_pass_agrees(x, g, b):
+    """K2 as planned (the scale from the statistics' extremes, or on the
+    cluster path the exact abs-max) against K2 forced through the two-pass
+    path's full abs-max pass: bitwise equal codes and scales. Returns the
+    flags."""
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    xq, s, flags = gq._gn_silu_quant_launch(x, g, b, 32, 1e-5)
+    fq, fs, fflags = gq._gn_silu_quant_launch(x, g, b, 32, 1e-5, full=True, path="two-pass")
+    torch.cuda.synchronize()
+    assert bool(fflags.all())
+    assert torch.equal(fs, s), (fs.flatten() - s.flatten()).abs().max()
+    assert torch.equal(fq, xq)
+    return flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K2_SHAPES, ids=[f"{s[1]}px_{s[3]}" for s in K2_SHAPES])
+def test_gn_quant_kernel_matches_plain_at_every_forward_shape(shape):
+    """K2 at every distinct shape of one fused-int8 forward: the plain
+    version's check, no sample flagged, and the scale from the extremes
+    equal to the full pass's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x, g, b = _gn_quant_inputs(shape, torch.bfloat16, gen)
+    check_gn_quant(x, g, b)
+    assert not bool(_full_pass_agrees(x, g, b).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 32, 32, 512), torch.bfloat16),
+    ((3, 5, 7, 96), torch.float32),
+    ((2, 64, 64, 256), torch.float32),
+], ids=["32px_bf16", "ragged_f32", "64px_f32"])
+def test_gn_quant_kernel_flagged_path_on_the_card(shape, dtype):
+    """Samples whose every t is negative (gamma / 5, beta / 10 - 1.28) have
+    their abs-max in the SiLU's negative lobe: they are flagged, take the
+    full pass, and hold the plain version's check; the others are not.
+    Also negative gamma on one sample."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, g, b = _gn_quant_inputs(shape, dtype, gen)
+    n = shape[0]
+    g[0] *= 0.2
+    b[0] = b[0] * 0.1 - 1.28
+    g[n - 1] = -g[n - 1].abs()
+    check_gn_quant(x, g, b)
+    flags = _full_pass_agrees(x, g, b)
+    assert flags.tolist() == [1] + [0] * (n - 1)
+
+
+@pytest.mark.cuda
+def test_gn_quant_kernel_ragged_last_chunk_and_constant_channels():
+    """S = 17 * 13 rows leave the last chunk short; constant channels have
+    min = max; gamma negative on half the channels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    from free_hunch_tpu_torch.ops.groupnorm import device_sms, gn_plan
+    shape = (4, 17, 13, 256)
+    plan = gn_plan(4, 17 * 13, 256, 32, 2, device_sms("cuda"), quant=True)
+    assert plan.chunks * plan.rows > 17 * 13
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, g, b = _gn_quant_inputs(shape, torch.bfloat16, gen)
+    x[..., ::7] = 0.75
+    g[:, ::2] *= -1
+    check_gn_quant(x, g, b)
+    assert not bool(_full_pass_agrees(x, g, b).any())
+    assert gq.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 16, 16, 1024), torch.bfloat16),
+    ((8, 32, 32, 512), torch.bfloat16),
+    ((8, 8, 8, 2048), torch.bfloat16),
+    ((3, 8, 8, 96), torch.float32),
+], ids=["16px_1024", "32px_512", "8px_2048", "8px_96_f32"])
+def test_cluster_path_equals_the_two_pass_path_bitwise(shape, dtype):
+    """The one-launch path (csrc/gn_cluster.cuh) and the two-pass path cut
+    into the same chunks compute the same arithmetic in the same order:
+    K1's outputs (with and without SiLU) and K2's codes, scales and flags
+    are bitwise equal, and each holds its plain version's check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    from free_hunch_tpu_torch.ops.groupnorm import device_sms, gn_plan
+    n, h, w, c = shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert gn_plan(n, h * w, c, 32, size, device_sms("cuda")).path == "cluster"
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x, g2, b2 = _gn_quant_inputs(shape, dtype, gen)
+    g, b = g2[0].contiguous(), b2[0].contiguous()
+    for silu in (True, False):
+        y = gn._groupnorm_launch(x, g, b, 32, 1e-5, silu)
+        y2 = gn._groupnorm_launch(x, g, b, 32, 1e-5, silu, path="two-pass")
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2)
+    before = gn.launches
+    gn.groupnorm_silu(x, g, b, 32, 1e-5, True)
+    assert gn.launches == before + 1
+    xq, s, f = gq._gn_silu_quant_launch(x, g2, b2, 32, 1e-5)
+    xq2, s2, f2 = gq._gn_silu_quant_launch(x, g2, b2, 32, 1e-5, path="two-pass")
+    torch.cuda.synchronize()
+    assert torch.equal(xq, xq2) and torch.equal(s, s2) and torch.equal(f, f2)
+    check_gn_quant(x, g2, b2)
+
+
 # -- K3: the int8 implicit-GEMM convolution (csrc/int8_conv.cu) --------------
 
 def _int8(shape, gen):

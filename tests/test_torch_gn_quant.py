@@ -117,3 +117,58 @@ def test_wrapper_raises_off_cpu_and_cuda():
                           torch.as_tensor(b))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tgq.gn_silu_quant_cuda(torch.as_tensor(x), torch.as_tensor(g), torch.as_tensor(b))
+
+
+def _extremes_and_stats(x, groups, chunks, eps=1e-5):
+    """Per-(sample, chunk, channel) min and max of x, chunks of whole rows
+    as K2's statistics pass cuts them, and the group statistics by the
+    plain version's formula."""
+    n, h, w, c = x.shape
+    xf = x.float()
+    rows = -(-h * w // chunks)
+    flat = xf.reshape(n, h * w, c)
+    lo = torch.stack([flat[:, r:r + rows].amin(dim=1) for r in range(0, h * w, rows)], 1)
+    hi = torch.stack([flat[:, r:r + rows].amax(dim=1) for r in range(0, h * w, rows)], 1)
+    cg = c // groups
+    mean = xf.mean(dim=(1, 2)).reshape(n, groups, cg).mean(dim=-1)
+    centered = xf - mean.repeat_interleave(cg, dim=-1)[:, None, None, :]
+    var = centered.square().mean(dim=(1, 2)).reshape(n, groups, cg).mean(dim=-1)
+    return lo, hi, mean, torch.rsqrt(var + eps)
+
+
+@pytest.mark.parametrize("case", ["random_bf16", "random_f32", "negative_gamma",
+                                  "constant_channels", "negative_lobe"])
+def test_scale_from_extremes_matches_the_plain_scale(case):
+    """K2's finalize in PyTorch (``gn_silu_quant_scale_plain``): from the
+    chunks' extremes of x, the scale equals the plain version's to 1e-6
+    relative wherever the sample is not flagged, and a sample is flagged
+    exactly where its abs-max lies below ``LOBE`` (inside the SiLU's
+    negative lobe, where only a pass over every element finds it)."""
+    x, g, b = _inputs((4, 8, 6, 128), seed=21)
+    dtype = torch.float32 if case == "random_f32" else torch.bfloat16
+    if case == "negative_gamma":
+        g[1] = -np.abs(g[1])
+        g[2, ::3] *= -1
+    if case == "constant_channels":
+        x[:, :, :, ::5] = 1.5
+        x[2, :, :, :64] = -0.25
+    if case == "negative_lobe":
+        # samples 0 and 3: every t negative, the abs-max on the lobe
+        for i in (0, 3):
+            g[i] *= 0.2
+            b[i] = b[i] * 0.1 - 1.28
+    xt, gt, bt = torch.as_tensor(x).to(dtype), torch.as_tensor(g), torch.as_tensor(b)
+    _, want = tgq.gn_silu_quant_plain(xt, gt, bt, 32, 1e-5)
+    lo, hi, mean, rstd = _extremes_and_stats(xt, 32, chunks=5)
+    scale, flag = tgq.gn_silu_quant_scale_plain(lo, hi, mean, rstd, gt, bt)
+    assert scale.shape == want.shape and flag.dtype == torch.bool
+    amax = want.flatten() * 127.0
+    assert torch.equal(flag, amax < tgq.LOBE * (1 - 1e-6))
+    if case == "negative_lobe":
+        assert flag.tolist() == [True, False, False, True]
+    else:
+        assert not flag.any()
+    ok = ~flag
+    torch.testing.assert_close(scale.flatten()[ok], want.flatten()[ok], rtol=1e-6, atol=0)
+    # a flagged sample's candidate never exceeds its true abs-max
+    assert torch.all(scale.flatten()[flag] <= want.flatten()[flag] * (1 + 1e-6))

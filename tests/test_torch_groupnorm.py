@@ -128,8 +128,10 @@ def test_centred_variance_survives_a_large_mean():
                                        (2, 64, 1024, 8), (2, 65536, 256, 4),
                                        (3, 35, 64, 8), (1, 1, 2048, 8)])
 def test_kernel_plan_covers_every_row(n, s, c, vec):
-    ty, rows, p = gn._plan(n, s, c, vec)
-    assert rows >= ty >= 1 and (c // vec) * ty <= 1024
+    plan = gn.gn_plan(n, s, c, 32, 16 // vec, 132)
+    ty, rows, p = plan.ty, plan.rows, plan.chunks
+    assert (c // vec) * ty <= 1024 and ty >= 1 and rows >= 1
+    assert rows >= ty or plan.path == "cluster"
     assert (p - 1) * rows < s <= p * rows
 
 
