@@ -7,6 +7,7 @@
                                                # time, every small-layer cut
     python3 chip_smoke.py --gn                 # K1 and K2 alone: per pass and
                                                # per call, every forward shape
+    python3 chip_smoke.py --mechanisms         # phases 3b, 4b-4d alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -27,6 +28,11 @@ Phases, in order; any failure raises and exits non-zero:
    slices on the CPU (plain versions), same weights and inputs: the f32
    torso, the fused int8 torso, and the static int8 torso calibrated on each
    side; each int8 module also on its own, on the card's inputs.
+3b. mechanisms: a 32 px comparison (f32 torso, 3 Heun steps) for all eight
+   conditioning mechanisms on gaussian blur, super-resolution x4 and
+   inpainting (one mask drawn on the CPU), and DPS on colorization,
+   denoising and phase retrieval: each guided call on the card from the
+   CPU slice's inputs and state.
 4. slices: the ``bench.py`` protocol in the port. Guided 256x256
    gaussian-blur deblurring with Free Hunch (``online_covariance``,
    DCT-diagonal prior, tailored CG recycling the previous stage's solution,
@@ -38,6 +44,15 @@ Phases, in order; any failure raises and exits non-zero:
    it, and checked against the module calls counted by hooks; one more run
    under ``torch.profiler`` gives the device time by kernel family and the
    device's idle share.
+4b. the same protocol on the bf16 torso for super-resolution x4 and for
+   inpainting with a random mask, one run each (wall time, peak memory, CG
+   niter, K1 launches against the hooks).
+4c. a sweep of the seven other mechanisms on gaussian blur, SR x4 and
+   inpainting at full width (batch 2, 3 Heun steps): wall ms and K1
+   launches per guided call.
+4d. one pixel-space and one Fourier-coordinate deblur CG iteration at
+   256 px, batch 8, on the same system: the reading behind
+   ``cg_coords='auto'``.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -60,12 +75,12 @@ import torch
 import torch.nn.functional as F
 
 import free_hunch_tpu_torch as fht
-from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism
+from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism, solvers
 from free_hunch_tpu_torch.models import loading
 from free_hunch_tpu_torch.models.calibrate import calibrate_qscales
 from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
 from free_hunch_tpu_torch.models.unet import GroupNorm32, ResBlock, create_model
-from free_hunch_tpu_torch.operators import assets, get_operator
+from free_hunch_tpu_torch.operators import assets, get_operator, masks
 from free_hunch_tpu_torch.ops import _nvcc
 from free_hunch_tpu_torch.ops import gn_quant as gq
 from free_hunch_tpu_torch.ops import groupnorm as gn
@@ -876,6 +891,178 @@ def reference_phase(seed: int):
         raise AssertionError("reference phase: card and CPU slices disagree")
 
 
+# The mechanism reference: every conditioning mechanism on the operators its
+# solvers serve, DPS also on the operators it needs only the forward of.
+MECHANISMS = ("online_covariance", "dps", "pigdm", "pigdm_videodiff_schedule",
+              "peng_convert", "peng_analytic", "tmpd", "diffpir")
+MECH_OPS = ("gaussian_blur", "super_resolution", "inpainting")
+DPS_ONLY_OPS = ("colorization", "noise", "phase_retrieval")
+MECH_REF_CASES = tuple([(m, o) for m in MECHANISMS for o in MECH_OPS]
+                       + [("dps", o) for o in DPS_ONLY_OPS])
+# the limits of ``reference_phase``, per guided call: each call's x0 before
+# the last within 1e-3 of its own max |x0|, the last (sigma 0.01) within 4e-3
+MECH_REF_CALL_REL, MECH_REF_LAST_ABS = 1e-3, 4e-3
+
+
+def mechanism(name: str, op, res: int, cap: int):
+    """Free Hunch as ``reference_phase`` runs it (flat DCT prior), or a
+    stateless mechanism with its defaults at cond_scaling 1."""
+    if name == "online_covariance":
+        return free_hunch(op, res, cap, "dct_diagonal_noinfo")
+    return choose_conditioning_mechanism(name)(cond_scaling=1.0, forward_operator=op)
+
+
+def state_to(state, dev):
+    """A mechanism state (nested NamedTuples of tensors and host scalars)
+    with every tensor on ``dev``."""
+    if torch.is_tensor(state):
+        return state.to(dev)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(state_to(v, dev) for v in state))
+    return state
+
+
+class CallRecorder:
+    """Pass-through guidance mechanism that records every call: its x_t,
+    sigma and state in, its x0 and CG count out."""
+
+    def __init__(self, mech):
+        self.mech, self.calls = mech, []
+
+    def init_state(self, batch, img_shape):
+        return self.mech.init_state(batch, img_shape)
+
+    def __call__(self, denoise, x_t, y, sigma, state):
+        x0, new = self.mech(denoise, x_t, y, sigma, state)
+        self.calls.append(dict(x_t=x_t, sigma=sigma, state=state, x0=x0.cpu().numpy(),
+                               niter=new.cg_niter))
+        return x0, new
+
+
+class MechanismReference:
+    """The 32 px witness of every mechanism: seeded weights of the tiny f32
+    UNet, noise, a ground truth measured once on the CPU by each operator
+    (so both sides read the same y), and one inpainting mask drawn once on
+    the CPU (p ~ U(0.1, 0.3), the eval defaults); 3 Heun steps, 5 guided
+    calls.
+
+    The CPU runs the slice; the card runs each guided call on the CPU's x_t,
+    sigma and mechanism state (teacher forcing), and each call's x0 and CG
+    count are compared. Compared step by step instead, DPS read 3.7x its
+    limit on an H100 (PERF.md, section 6): at sigma 0.01 a pixel whose
+    denoiser output sits on the clamp at +-1 on one device and not on the
+    other flips its DPS gradient, and the Heun corrector multiplies that
+    call's update by h / (2 sigma') = 173 into the step's x."""
+
+    res, batch, steps = 32, 2, 3
+
+    def __init__(self, seed: int):
+        res, batch = self.res, self.batch
+        self.tiny = dict(TINY, dtype=torch.float32)
+        self.state = loading.random_init_(create_model(**self.tiny), seed=seed).state_dict()
+        rng = np.random.default_rng(seed + 2)
+        self.noise = rng.normal(size=(batch, 3, res, res)).astype(np.float32)
+        self.truth = rng.uniform(-1, 1, (batch, 3, res, res)).astype(np.float32)
+        self.mask = masks.generate_mask(torch.Generator().manual_seed(seed),
+                                        {"mask_type": "random", "image_size": res,
+                                         "mask_prob_range": (0.1, 0.3)})
+        self.models, self.ys = {}, {}
+
+    def operator(self, name: str, dev):
+        kw = {"mask": self.mask} if name == "inpainting" else {}
+        return get_operator(name, in_shape=(1, 3, self.res, self.res), sigma_s=0.1,
+                            device=dev, **kw)
+
+    def run(self, mech: str, op_name: str, dev: str, teacher=None, nudge: float = 0.0) -> dict:
+        """One side: each guided call's x0 and CG count, and the K1
+        launches. Without ``teacher`` the slice runs and records its calls;
+        with it (the CPU side's result) each of its calls runs again here.
+        ``nudge`` multiplies every denoiser output by (1 + nudge N(0, 1)),
+        a stand-in for another device's rounding."""
+        if dev not in self.models:
+            with torch.device(dev):
+                model = create_model(**self.tiny)
+            model.load_state_dict(self.state)
+            self.models[dev] = loading.wrap_precond(model.eval().requires_grad_(False),
+                                                    {"image_size": self.res})
+        if op_name not in self.ys:
+            self.ys[op_name] = self.operator(op_name, "cpu").forward(
+                torch.as_tensor(self.truth), noiseless=True)
+        precond = denoise = self.models[dev]
+        if nudge:
+            rng = np.random.default_rng(1)
+
+            def denoise(x, sigma):
+                x0, var = precond(x, sigma)
+                n = torch.as_tensor(rng.normal(size=tuple(x0.shape)), dtype=x0.dtype,
+                                    device=x0.device)
+                return x0 * (1 + nudge * n), var
+        xs, s0 = schedule(precond, self.steps)
+        mech_obj = mechanism(mech, self.operator(op_name, dev), self.res,
+                             edm.required_cov_capacity(xs))
+        y = self.ys[op_name].to(dev)
+        before = gn.launches
+        if teacher is None:
+            rec = CallRecorder(mech_obj)
+            edm.sample_loop(denoise, rec, torch.as_tensor(self.noise, device=dev), y, xs,
+                            sigma0_scaled=s0)
+            calls = rec.calls
+        else:
+            calls = []
+            for c in teacher["calls"]:
+                x0, new = mech_obj(denoise, c["x_t"].to(dev), y, c["sigma"],
+                                   state_to(c["state"], dev))
+                calls.append(dict(x0=x0.cpu().numpy(), niter=new.cg_niter))
+        return dict(calls=calls, launches=gn.launches - before)
+
+
+def mechanism_reference_failures(cpu: dict, card: dict) -> tuple:
+    """(per-call max |dx0|, per-call limit, what breaks the limits or equal
+    CG niter) of one case, card against CPU."""
+    want = [c["x0"] for c in cpu["calls"]]
+    got = [c["x0"] for c in card["calls"]]
+    limit = np.array([MECH_REF_CALL_REL * np.abs(w).max() for w in want])
+    limit[-1] = MECH_REF_LAST_ABS
+    err = np.array([np.abs(g - w).max() for g, w in zip(got, want)])
+    bad = []
+    if not all(np.isfinite(g).all() for g in got):
+        bad.append("card output not finite")
+    bad += [f"call {i} max |dx0| {e:.3g} > {lim:.3g}"
+            for i, (e, lim) in enumerate(zip(err, limit)) if not e <= lim]
+    n_cpu = [c["niter"] for c in cpu["calls"]]
+    n_card = [c["niter"] for c in card["calls"]]
+    if n_card != n_cpu:
+        bad.append(f"CG niter card {n_card} cpu {n_cpu}")
+    return err, limit, bad
+
+
+def mechanism_reference_phase(seed: int, card: str = "cuda"):
+    """32 px, f32 UNet, 3 Heun steps: every mechanism x operator case, each
+    guided call on the card (K1) from the CPU's inputs against the CPU
+    (plain version); any call outside the limits, with another CG count, or
+    a case without K1 launches on the card raises."""
+    ref = MechanismReference(seed)
+    failed = []
+    t0 = time.perf_counter()
+    for mech, op in MECH_REF_CASES:
+        cpu = ref.run(mech, op, "cpu")
+        gpu = ref.run(mech, op, card, teacher=cpu)
+        err, limit, bad = mechanism_reference_failures(cpu, gpu)
+        if cpu["launches"] != 0 or gpu["launches"] == 0:
+            bad.append(f"K1 launches cpu {cpu['launches']} card {gpu['launches']}")
+        say(f"mechanism reference 32 px {mech} on {op}, card vs CPU, per guided call: max "
+            f"|dx0| {[float(f'{e:.3g}') for e in err]} (limits "
+            f"{[float(f'{v:.3g}') for v in limit]}), CG niter "
+            f"{[c['niter'] for c in gpu['calls']]}, card K1 launches {gpu['launches']}"
+            + (f"; FAILS: {bad}" if bad else ""))
+        if bad:
+            failed.append((mech, op, bad))
+    say(f"mechanism reference: {len(MECH_REF_CASES)} cases in {time.perf_counter() - t0:.1f} s, "
+        f"{len(failed)} outside the limits")
+    if failed:
+        raise AssertionError(f"mechanism reference: card and CPU disagree: {failed}")
+
+
 def free_hunch_tests(op, res: int, cap: int, prior_dir: str):
     """The mechanism configuration of the CPU parity tests
     (tests/test_torch_freehunch.py): the DCT prior cut to the 32 px grid,
@@ -1191,15 +1378,32 @@ def expected_launches(model, fw: int, calls: dict) -> dict:
             "int8_conv": calls["int8"] + fw * n_int8}
 
 
+def slice_operator(name: str, res: int, dev, seed: int):
+    """The bench's operators at sigma_s 0.1: the 61x61 gaussian blur (std
+    3), bicubic super-resolution x4, or inpainting with one random mask
+    (p ~ U(0.1, 0.3), ``eval.py``'s defaults) drawn from a seeded CPU
+    generator."""
+    kw = dict(in_shape=(1, 3, res, res), sigma_s=0.1, device=dev)
+    if name == "gaussian_blur":
+        kw.update(kernel_size=61, intensity=3.0)
+    elif name == "super_resolution":
+        kw.update(scale_factor=4)
+    elif name == "inpainting":
+        kw.update(mask_opt={"mask_type": "random", "image_size": res,
+                            "mask_prob_range": (0.1, 0.3)},
+                  mask_generator=torch.Generator().manual_seed(seed))
+    return get_operator(name, **kw)
+
+
 def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
-                label: str):
-    """The bench.py protocol on ``model``; returns the first run's launch
-    counts and the wall time of every run."""
+                label: str, op_name: str = "gaussian_blur", profile: bool = True):
+    """The bench.py protocol on ``model`` and the operator ``op_name``
+    (with ``profile``, one more run under the profiler); returns the first
+    run's launch counts and the wall time of every run."""
     dev = next(model.parameters()).device
     res = model_args["image_size"]
     precond = loading.wrap_precond(model, model_args)
-    op = get_operator("gaussian_blur", in_shape=(1, 3, res, res), sigma_s=0.1,
-                      kernel_size=61, intensity=3.0, device=dev)
+    op = slice_operator(op_name, res, dev, seed)
     xs, s0 = schedule(precond, steps)
     cap = edm.required_cov_capacity(xs)
     mech = Recorder(free_hunch(op, res, cap, "dct_diagonal"))
@@ -1230,6 +1434,10 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
               for m in model.modules() if isinstance(m, (q.QuantConv, q.QuantDense))]
     say(f"{label} slice: {res}x{res}, batch {batch}, {steps} Heun steps, cov_capacity "
         f"{cap}, {sum(p.numel() for p in model.parameters())} parameters")
+    if op_name != "gaussian_blur":
+        say(f"  {op_name}: measurement y {tuple(y.shape)}"
+            + (f", observed pixels {float(op.mask[0, 0].mean()):.4f}"
+               if op_name == "inpainting" else ""))
     walls = []
     for run in range(runs):
         torch.cuda.synchronize()
@@ -1251,8 +1459,8 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for h in hooks:
         h.remove()
-    busy = device_breakdown(lambda: edm.sample_loop(denoise, mech, noise, y, xs, gen,
-                                                    sigma0_scaled=s0))
+    busy = profile and device_breakdown(lambda: edm.sample_loop(denoise, mech, noise, y, xs,
+                                                                gen, sigma0_scaled=s0))
     fused = counted["calls"].get("fused", 0)
     if busy:
         fh = mech.mech
@@ -1292,6 +1500,112 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
     return launches, walls
 
 
+class TimedMechanism:
+    """Pass-through guidance mechanism that records each call's wall ms (the
+    card synchronised on both sides) and K1 launches."""
+
+    def __init__(self, mech):
+        self.mech, self.calls = mech, []
+
+    def init_state(self, batch, img_shape):
+        return self.mech.init_state(batch, img_shape)
+
+    def __call__(self, denoise, x_t, y, sigma, state):
+        torch.cuda.synchronize()
+        t0, k1 = time.perf_counter(), gn.launches
+        out = self.mech(denoise, x_t, y, sigma, state)
+        torch.cuda.synchronize()
+        self.calls.append(((time.perf_counter() - t0) * 1e3, gn.launches - k1))
+        return out
+
+
+def sweep_phase(model, model_args, batch: int, steps: int, seed: int):
+    """The seven mechanisms besides Free Hunch on the three operators at
+    full width: one short run each, with every guided call's wall ms and
+    K1 launches; any call without a K1 launch or a non-finite sample
+    raises."""
+    dev = next(model.parameters()).device
+    res = model_args["image_size"]
+    precond = loading.wrap_precond(model, model_args)
+    xs, s0 = schedule(precond, steps)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    truth = torch.rand((batch, 3, res, res), generator=gen, device=dev) * 2 - 1
+    noise = torch.randn((batch, 3, res, res), generator=gen, device=dev)
+    say(f"mechanism sweep: {res}x{res}, batch {batch}, {steps} Heun steps (wall ms and K1 "
+        f"launches per guided call)")
+    t_all = time.perf_counter()
+    for op_name in MECH_OPS:
+        op = slice_operator(op_name, res, dev, seed)
+        y = op.forward(truth, generator=gen)
+        for name in MECHANISMS[1:]:
+            mech = TimedMechanism(mechanism(name, op, res, 0))
+            x, _ = edm.sample_loop(precond, mech, noise, y, xs, sigma0_scaled=s0)
+            ms = [round(c[0], 1) for c in mech.calls]
+            k1 = [c[1] for c in mech.calls]
+            say(f"  {name} on {op_name}: {ms} ms, K1 {k1}")
+            if not (bool(torch.isfinite(x).all()) and all(k1)):
+                raise AssertionError(f"sweep {name} on {op_name}: finite "
+                                     f"{bool(torch.isfinite(x).all())}, K1 launches {k1}")
+    say(f"mechanism sweep: {len(MECH_OPS) * (len(MECHANISMS) - 1)} runs in "
+        f"{time.perf_counter() - t_all:.1f} s")
+
+
+def cg_coords_phase(batch: int, seed: int, res: int, dev, iters=(10, 40)):
+    """Host-clock time of one deblur CG iteration in pixel and in Fourier
+    coordinates on the same system (the gaussian blur, the bundled DCT
+    prior as the covariance, its spectral preconditioner), from two solves
+    of fixed lengths that never converge (rtol 0): the difference over the
+    difference of iterations. Changes nothing; ``cg_coords='auto'`` takes
+    pixel on the card."""
+    from free_hunch_tpu_torch.ops.dct import dct_2d, idct_2d
+    op = slice_operator("gaussian_blur", res, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.rand((batch, 3, res, res), generator=gen, device=dev) * 2 - 1
+    y = op.forward(torch.rand_like(x0) * 2 - 1, generator=gen)
+    prior = torch.as_tensor(assets.dct_variance()[:, :res, :res], device=dev)[None]
+    spec = solvers._dct_spec_to_fourier(prior.expand(batch, -1, -1, -1))
+
+    def cov_mv(v):
+        return idct_2d(prior * dct_2d(v))
+
+    per_iter = {}
+    for label, fn in (("pixel", solvers.deblur_mat_cg),
+                      ("fourier", solvers.deblur_mat_cg_fourier)):
+        timed = []
+        for n in (iters[0],) + tuple(iters):       # the first solve warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = fn(op, y, x0, cov_mv=cov_mv, rtol=0.0, maxiter=n, return_info=True,
+                         warm_start=True, min_iter=1, stall_iters=10**6,
+                         cov_fourier_spec=spec)
+            torch.cuda.synchronize()
+            timed.append((info.niter, time.perf_counter() - t0))
+        (n1, t1), (n2, t2) = timed[1:]
+        if n2 <= n1:
+            raise AssertionError(f"CG coordinates {label}: {n1} and {n2} iterations")
+        per_iter[label] = (t2 - t1) / (n2 - n1) * 1e3
+        say(f"CG coordinates, {label}: {n1} iterations {t1:.4f} s, {n2} iterations "
+            f"{t2:.4f} s -> {per_iter[label]:.3f} ms per iteration (batch {batch}, {res} px)")
+    say(f"CG coordinates: fourier / pixel = {per_iter['fourier'] / per_iter['pixel']:.3f} "
+        f"per iteration")
+    return per_iter
+
+
+def mechanism_phases(model, model_args, args) -> dict:
+    """Phases 4b-4d on the bf16 model; returns the new slices' launches."""
+    out = {}
+    for op_name in ("super_resolution", "inpainting"):
+        launches, walls = slice_phase(model, model_args, args.batch, args.steps, 1, args.seed,
+                                      f"bf16 {op_name}", op_name=op_name, profile=False)
+        say(f"bf16 {op_name} sampling wall time per run (s): {[round(w, 3) for w in walls]}")
+        out[op_name] = launches
+        torch.cuda.empty_cache()
+    sweep_phase(model, model_args, 2, 3, args.seed)
+    cg_coords_phase(args.batch, args.seed, model_args["image_size"],
+                    next(model.parameters()).device)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -1304,6 +1618,9 @@ def main(argv=None) -> int:
                     "one call, and every cut of the small layers; no model, no result lines")
     ap.add_argument("--gn", action="store_true", help="K1 and K2 alone: per call and per "
                     "pass at every distinct shape of one forward; no slice, no result lines")
+    ap.add_argument("--mechanisms", action="store_true", help="the mechanism reference, the "
+                    "SR and inpainting slices, the sweep and the CG-coordinates reading alone; "
+                    "no result lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -1333,13 +1650,21 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     say(f"256 px UNet built ({'checkpoint' if CKPT_256.exists() else 'seeded random'}"
         f" weights) in {time.perf_counter() - t0:.2f} s")
+    if args.mechanisms:
+        mechanism_reference_phase(args.seed)
+        mechanism_phases(model, model_args, args)
+        say(f"chip_smoke --mechanisms wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     res = model_args["image_size"]
     gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"))
     reference_phase(args.seed)
+    mechanism_reference_phase(args.seed)
     launches, walls = slice_phase(model, model_args, args.batch, args.steps, args.runs,
                                   args.seed, "bf16")
     say(f"bf16 sampling wall time per run (s): {[round(w, 3) for w in walls]} on {smi}")
     gn_entry["launches"] = launches["groupnorm_silu"]
+    for op_name, op_launches in mechanism_phases(model, model_args, args).items():
+        gn_entry[f"launches_{op_name}"] = op_launches["groupnorm_silu"]
     del model
     torch.cuda.empty_cache()
 
@@ -1361,6 +1686,8 @@ def main(argv=None) -> int:
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
+                    ("groupnorm_silu", gn_entry["launches_super_resolution"]),
+                    ("groupnorm_silu", gn_entry["launches_inpainting"]),
                     ("groupnorm_silu", qlaunches["groupnorm_silu"]),
                     ("gn_silu_quant", k2_entry["launches"]),
                     ("int8_conv", k3_entry["launches"])):

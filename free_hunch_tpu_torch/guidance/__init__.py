@@ -1,3 +1,4 @@
 from free_hunch_tpu_torch.guidance.mechanisms import (  # noqa: F401
-    FreeHunch, FreeHunchState, choose_conditioning_mechanism,
+    DPS, TMPD, DiffPIR, FreeHunch, FreeHunchState, PengAnalytic, PengConvert, PiGDM,
+    PiGDMVideodiffSchedule, choose_conditioning_mechanism,
 )

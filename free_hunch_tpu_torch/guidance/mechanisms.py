@@ -1,17 +1,20 @@
-"""Free Hunch conditioning: x0_mean <- x0_mean + sigma^2 * grad log p(y | x_t)
-with an online estimate of the denoiser covariance.
+"""Conditioning mechanisms: x0_mean <- x0_mean + sigma^2 * grad log p(y | x_t).
 
-Counterpart of ``FreeHunchState``, ``FreeHunch`` and ``_denoise_with_vjp``
-in ``free_hunch_tpu/guidance/mechanisms.py`` (:128-134, :247-701). Where the
-JAX package branches with ``lax.cond`` on traced booleans, the port branches
-in Python on host values: ``sigma`` and the step count live on the host, and
-``x_changed`` (one batch-global comparison) is the only device read, made
-only when a space update or a re-evaluation could follow. Per-sample
-decisions (BFGS guards, the large-update fallback) stay on the device as
-``torch.where``.
+Counterpart of ``free_hunch_tpu/guidance/mechanisms.py``: the factory
+``choose_conditioning_mechanism`` (:43-59), ``EmptyState``, the
+``ConditioningMechanism`` base and the seven stateless mechanisms (DPS,
+PiGDM, PiGDM-videodiff, PengConvert, PengAnalytic, TMPD, DiffPIR; :62-240),
+and Free Hunch (``online_covariance``; ``FreeHunchState``, ``FreeHunch``,
+:247-701). Where the JAX package branches with ``lax.cond`` on traced
+values, the port branches in Python on host values: ``sigma`` and the step
+count live on the host, and ``x_changed`` (one batch-global comparison) is
+the only device read, made only when a space update or a re-evaluation
+could follow. Per-sample decisions (BFGS guards, the large-update fallback)
+stay on the device as ``torch.where``. Host scalars that the JAX package
+computes in f32 (variances from sigma) are computed in f32 here too.
 
-The guidance gradient is ``torch.autograd.grad`` of x0_mean with respect to
-x_t against ``mat``, through the UNet with frozen parameters.
+Guidance gradients are ``torch.autograd.grad`` of x0_mean with respect to
+x_t against a cotangent, through the UNet with frozen parameters.
 """
 from __future__ import annotations
 
@@ -28,20 +31,213 @@ from free_hunch_tpu_torch.ops import lowrank
 from free_hunch_tpu_torch.ops.dct import dct_2d, idct_2d
 from free_hunch_tpu_torch.ops.lowrank import LowRank
 
+_F32 = np.float32
+
+
+def _mle_var(sigma) -> float:
+    """sigma^2 / (1 + sigma^2) in f32 arithmetic."""
+    s2 = _F32(sigma) * _F32(sigma)
+    return float(s2 / (_F32(1.0) + s2))
+
+
+def _analytic_var(dataset: str, sigma) -> float:
+    """The recon_mse table's variance at the tabulated sigma nearest to
+    ``sigma`` (f32, first of ties)."""
+    t = assets.recon_mse(dataset)
+    sig = np.asarray(t["sigmas"], _F32)
+    return float(np.asarray(t["mse_list"], _F32)[np.argmin(np.abs(sig - _F32(sigma)))])
+
+
+def choose_conditioning_mechanism(name: str):
+    table = {
+        "dps": DPS,
+        "pigdm": PiGDM,
+        "pigdm_videodiff_schedule": PiGDMVideodiffSchedule,
+        "online_covariance": FreeHunch,
+        "peng_convert": PengConvert,
+        "peng_analytic": PengAnalytic,
+        "tmpd": TMPD,
+        "diffpir": DiffPIR,
+    }
+    if name == "ddnm":
+        raise ValueError("ddnm runs through the dedicated DDNM+ sampler (the JAX "
+                         "package's samplers/ddnm.py, not ported yet), not a "
+                         "conditioning mechanism")
+    if name not in table:
+        raise ValueError(f"Unknown conditioning mechanism: {name}")
+    return table[name]
+
 
 def _denoise_with_vjp(denoise: Callable, x_t: torch.Tensor, sigma):
     """One forward through the denoiser; returns (x0_mean, x0_var, pullback)
-    with pullback(ct) = d(ct . x0_mean)/d x_t. The pullback runs once."""
+    with pullback(ct) = d(ct . x0_mean)/d x_t. The last pullback frees the
+    graph; an earlier one passes ``retain_graph=True``. x0_var is not
+    differentiated."""
     x = x_t.detach().requires_grad_(True)
     with torch.enable_grad():
         x0, x0_var = denoise(x, sigma)
 
-    def pullback(ct):
-        (g,) = torch.autograd.grad(x0, x, grad_outputs=ct)
+    def pullback(ct, retain_graph=False):
+        (g,) = torch.autograd.grad(x0, x, grad_outputs=ct, retain_graph=retain_graph)
         return g
 
     return x0.detach(), x0_var.detach(), pullback
 
+
+class EmptyState(NamedTuple):
+    """State of the stateless mechanisms: the call count and the last
+    solve's CG record (closed forms: 0 iterations, no host sync)."""
+    step: int
+    cg_niter: int               # iterations of the last mat solve
+    cg_resnorm: torch.Tensor    # () f32 batch-mean final residual norm
+    cg_optfrac: torch.Tensor    # () f32 fraction of rows converged to rtol
+    cg_host_syncs: int          # host syncs of the last solve
+
+
+def _record_cg(state, info):
+    """Stamp a solve's CGInfo onto the mechanism state."""
+    return state._replace(cg_niter=info.niter,
+                          cg_resnorm=torch.mean(info.residual_norm).float(),
+                          cg_optfrac=torch.mean(info.optimal.float()),
+                          cg_host_syncs=info.host_syncs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConditioningMechanism:
+    """Base: clips the updated x0_mean to [-1, 1] when configured."""
+    cond_scaling: float
+    forward_operator: object
+    clip_x0_mean: bool = False
+    pigdm_posthoc_scaling: bool = False
+    max_rtol: float = 1.0
+    use_rtol_func: bool = False
+    cg_maxiter: Optional[int] = None
+
+    def init_state(self, batch: int, img_shape: Tuple[int, ...]):
+        dev = self.forward_operator.device
+        return EmptyState(step=0, cg_niter=0, cg_resnorm=torch.zeros((), device=dev),
+                          cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
+
+    def __call__(self, denoise: Callable, x_t, y, sigma, state):
+        x0_new, state = self.x0_mean_update(denoise, x_t, y, float(_F32(sigma)), state)
+        if self.clip_x0_mean:
+            x0_new = torch.clamp(x0_new, -1.0, 1.0)
+        return x0_new, state
+
+    def _bump(self, state):
+        return state._replace(step=state.step + 1)
+
+    def _solve_and_guide(self, x0, pullback, y, sigma, state, theta0_var,
+                         scale=None, **solver_kw):
+        """The stateless mechanisms' tail: solve ``(A C A^T + sigma_s^2 I) u
+        = y - A x0`` for ``mat = A^T u`` on the scipy budget, pull the
+        guidance gradient back through the denoiser, return
+        ``x0 + grad * scale * sigma^2`` and record the solve."""
+        mat, info = choose_solver(self.forward_operator, y, x0, theta0_var=theta0_var,
+                                  method="scipy", max_rtol=self.max_rtol,
+                                  maxiter=self.cg_maxiter, return_info=True, **solver_kw)
+        grad = pullback(mat.detach())
+        s = self.cond_scaling if scale is None else scale
+        return x0 + grad * s * sigma**2, _record_cg(self._bump(state), info)
+
+
+@dataclasses.dataclass(frozen=True)
+class DPS(ConditioningMechanism):
+    """Diffusion posterior sampling: the gradient of ||y - A x0(x_t)||
+    through the denoiser. cond_scaling = zeta."""
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x = x_t.detach().requires_grad_(True)
+        with torch.enable_grad():
+            x0, _ = denoise(x, sigma)
+            diff = y - self.forward_operator.forward(x0, noiseless=True)
+            # per-sample norms summed: batch samples stay independent
+            norms = torch.sqrt(torch.sum(diff.reshape(diff.shape[0], -1) ** 2, dim=-1))
+            (g,) = torch.autograd.grad(torch.sum(norms), x)
+        return x0.detach() - self.cond_scaling * g * sigma**2, self._bump(state)
+
+
+@dataclasses.dataclass(frozen=True)
+class PiGDM(ConditioningMechanism):
+    """Pseudo-inverse guided diffusion with the MLE variance sigma^2/(1+sigma^2)."""
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x0, _, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+        x0_var = _mle_var(sigma)
+        scale = (x0_var if self.pigdm_posthoc_scaling else 1.0) * self.cond_scaling
+        return self._solve_and_guide(x0, pullback, y, sigma, state, x0_var, scale=scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class PiGDMVideodiffSchedule(ConditioningMechanism):
+    """PiGDM with the videodiff variance schedule x0_var = sigma^2."""
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x0, _, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+        return self._solve_and_guide(x0, pullback, y, sigma, state,
+                                     float(_F32(sigma) * _F32(sigma)))
+
+
+@dataclasses.dataclass(frozen=True)
+class PengConvert(ConditioningMechanism):
+    """Peng et al. 'convert': the network's learned per-pixel x0 variance
+    below the threshold, sigma^2/(1+sigma^2) per pixel above it."""
+    mle_sigma_thres: float = 0.2
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x0, x0_var, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+        var = x0_var if sigma < self.mle_sigma_thres else torch.full_like(
+            x0_var, _mle_var(sigma))
+        return self._solve_and_guide(x0, pullback, y, sigma, state, var)
+
+
+@dataclasses.dataclass(frozen=True)
+class PengAnalytic(ConditioningMechanism):
+    """Peng et al. 'analytic': the recon_mse table's per-sigma average
+    reconstruction MSE below the threshold, sigma^2/(1+sigma^2) above."""
+    mle_sigma_thres: float = 0.2
+    dataset: str = "imagenet"
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x0, _, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+        var = (_analytic_var(self.dataset, sigma) if sigma < self.mle_sigma_thres
+               else _mle_var(sigma))
+        return self._solve_and_guide(x0, pullback, y, sigma, state, var)
+
+
+@dataclasses.dataclass(frozen=True)
+class TMPD(ConditioningMechanism):
+    """Tweedie moment-projected diffusion: per-pixel variance from the row
+    sums of the denoiser Jacobian, sigma^2 * d(sum x0)/dx_t. One forward
+    serves the variance probe and the guidance gradient: the probe's
+    pullback keeps the graph for the second."""
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        x0, _, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+        x0_var = pullback(torch.ones_like(x0), retain_graph=True) * sigma**2
+        return self._solve_and_guide(x0, pullback, y, sigma, state, x0_var.detach(),
+                                     sigma_t=sigma, use_rtol_func=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffPIR(ConditioningMechanism):
+    """Plug-and-play data proximal step: x0 + var * mat with
+    var = sigma^2 / lambda. No gradient through the network."""
+    diffpir_lambda: float = 10.0
+
+    def x0_mean_update(self, denoise, x_t, y, sigma, state):
+        with torch.no_grad():
+            x0, _ = denoise(x_t, sigma)
+        x0_var = float(_F32(sigma) * _F32(sigma) / _F32(self.diffpir_lambda))
+        mat, info = choose_solver(self.forward_operator, y, x0, theta0_var=x0_var,
+                                  method="scipy", max_rtol=self.max_rtol,
+                                  maxiter=self.cg_maxiter, return_info=True)
+        return x0 + mat * x0_var, _record_cg(self._bump(state), info)
+
+
+# ---------------------------------------------------------------------------
+# Free Hunch (the paper's contribution)
+# ---------------------------------------------------------------------------
 
 class FreeHunchState(NamedTuple):
     """Per-run state of the online covariance mechanism. ``cov`` has a
@@ -60,29 +256,16 @@ class FreeHunchState(NamedTuple):
     cg_host_syncs: int         # host syncs of the last solve
 
 
-def choose_conditioning_mechanism(name: str):
-    """The port knows ``online_covariance`` (Free Hunch) so far."""
-    if name == "online_covariance":
-        return FreeHunch
-    raise NotImplementedError(f"conditioning mechanism {name!r} is not ported yet "
-                              "(have: online_covariance)")
-
-
 @dataclasses.dataclass(frozen=True)
-class FreeHunch:
+class FreeHunch(ConditioningMechanism):
     """Online denoiser-covariance guidance. Per call: time update of the
     covariance with analytic transport of the previous denoiser mean, gated
-    BFGS space update, tailored CG solve against Sigma_0, and the guidance
-    gradient (vjp of ``mat`` through the UNet, with the large-update fallback
-    Sigma_0 mat / sigma^2). The knobs and their reasons are the JAX class's;
-    ``use_analytic_var_at_end``, ``algebra_dtype`` and ``cov_partition`` are
-    not ported and raise."""
-    cond_scaling: float
-    forward_operator: object
-    clip_x0_mean: bool = False
-    max_rtol: float = 1.0
-    use_rtol_func: bool = False
-    cg_maxiter: Optional[int] = None
+    BFGS space update, tailored CG solve against Sigma_0 (below
+    ``mle_sigma_thres`` against the recon_mse variance instead, with
+    ``use_analytic_var_at_end``), and the guidance gradient (vjp of ``mat``
+    through the UNet, with the large-update fallback Sigma_0 mat / sigma^2).
+    The knobs and their reasons are the JAX class's; ``algebra_dtype`` other
+    than float32 and ``cov_partition`` are not ported and raise."""
     image_base_covariance: str = "identity"   # identity | dct_diagonal | dct_diagonal_noinfo
     init_denoiser_variance: float = 1.0
     init_noise_variance: float = 1.0
@@ -95,6 +278,7 @@ class FreeHunch:
     space_step_update_lower_threshold: float = 1.0
     denoiser_mean_error_threshold: float = 0.2
     use_analytic_var_at_end: bool = False
+    mle_sigma_thres: float = 0.2
     solver_type: str = "customcuda"
     data_dir: Optional[str] = None
     dataset: str = "imagenet"
@@ -107,7 +291,7 @@ class FreeHunch:
     transport_mean_bound: Optional[float] = None
     algebra_dtype: Optional[str] = None
     rtol_floor: float = RTOL_F32_FLOOR
-    cg_coords: str = "pixel"
+    cg_coords: str = "auto"
     cg_warm_start: str = "b"
     transport_formula: str = "telescoped"
     guidance_gradient: str = "vjp"
@@ -115,9 +299,6 @@ class FreeHunch:
     cov_partition: Optional[Tuple[Optional[str], Optional[str]]] = None
 
     def __post_init__(self):
-        if self.use_analytic_var_at_end:
-            raise NotImplementedError("use_analytic_var_at_end needs the scipy-budget "
-                                      "solver, which is not ported yet")
         if self.algebra_dtype not in (None, "float32"):
             raise NotImplementedError("algebra_dtype other than float32 is not ported")
         if self.cov_partition is not None:
@@ -130,12 +311,6 @@ class FreeHunch:
                              f"{self.cg_warm_start!r}")
         if self.transport_formula not in ("telescoped", "two_inverse"):
             raise ValueError(f"unknown transport_formula {self.transport_formula!r}")
-
-    def __call__(self, denoise: Callable, x_t, y, sigma, state):
-        x0_new, state = self.x0_mean_update(denoise, x_t, y, sigma, state)
-        if self.clip_x0_mean:
-            x0_new = torch.clamp(x0_new, -1.0, 1.0)
-        return x0_new, state
 
     # -- basis --------------------------------------------------------------
 
@@ -240,34 +415,53 @@ class FreeHunch:
 
         # (4) solve (A Sigma_0 A^T + sigma_s^2 I) u = y - A x0;  mat = A^T u
         dct_basis = self.image_base_covariance.startswith("dct")
-        cov_vbar = None
-        if not dct_basis:
-            lr_trace = torch.sum(cov.M * torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)),
-                                 dim=(-2, -1))
-            cov_vbar = (torch.sum(cov.diag, dim=-1) + lr_trace) / cov.diag.shape[-1]
+        # the mean eigenvalue of Sigma_0 per sample: the scalar preconditioner
+        # of the solvers that take no spectrum (inpainting, identity basis)
+        lr_trace = torch.sum(cov.M * torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)), dim=(-2, -1))
+        cov_vbar = (torch.sum(cov.diag, dim=-1) + lr_trace) / cov.diag.shape[-1]
         recycle = self.cg_warm_start == "prev"
         recycle_kw = (dict(u_init=state.prev_u, u_init_valid=state.step > 0,
                            return_u=True) if recycle else {})
-        solved = choose_solver(self.forward_operator, y.float(), x0,
-                               cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
-                               method=self.solver_type, max_rtol=self.max_rtol,
-                               sigma_t=sigma, use_rtol_func=self.use_rtol_func,
-                               maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
-                               return_info=True, precondition=self.cg_precondition,
-                               stall_iters=self.cg_stall_iters,
-                               cov_dct_diag=lowrank.diag_of(cov) if dct_basis else None,
-                               rtol_floor=self.rtol_floor,
-                               track_best=self.cg_track_best,
-                               cg_coords=self.cg_coords, **recycle_kw)
+        analytic_case = self.use_analytic_var_at_end and sigma < self.mle_sigma_thres
+        if analytic_case:
+            # below the threshold the solve takes the recon_mse variance on
+            # the scipy budget, with the mechanism's CG knobs
+            var = _analytic_var(self.dataset, sigma)
+            solved = choose_solver(self.forward_operator, y.float(), x0,
+                                   theta0_var=torch.full_like(x0, var), method="scipy",
+                                   max_rtol=self.max_rtol, sigma_t=sigma,
+                                   use_rtol_func=self.use_rtol_func, maxiter=self.cg_maxiter,
+                                   return_info=True, precondition=self.cg_precondition,
+                                   stall_iters=self.cg_stall_iters,
+                                   rtol_floor=self.rtol_floor,
+                                   track_best=self.cg_track_best, **recycle_kw)
+        else:
+            solved = choose_solver(self.forward_operator, y.float(), x0,
+                                   cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
+                                   method=self.solver_type, max_rtol=self.max_rtol,
+                                   sigma_t=sigma, use_rtol_func=self.use_rtol_func,
+                                   maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
+                                   return_info=True, precondition=self.cg_precondition,
+                                   stall_iters=self.cg_stall_iters,
+                                   cov_dct_diag=lowrank.diag_of(cov) if dct_basis else None,
+                                   rtol_floor=self.rtol_floor,
+                                   track_best=self.cg_track_best,
+                                   cg_coords=self.cg_coords, **recycle_kw)
         if recycle:
             mat, cg_info, u_next = solved
         else:
             (mat, cg_info), u_next = solved, state.prev_u
 
-        # (5) guidance gradient with the large-update fallback
-        fallback = self.cov_matvec_pixel(cov, mat) / sigma**2
+        # (5) guidance gradient with the large-update fallback; where mat was
+        # solved against var * I, every non-vjp gradient is var * mat / sigma^2
+        if analytic_case:
+            fallback = var * mat / sigma**2
+        else:
+            fallback = self.cov_matvec_pixel(cov, mat) / sigma**2
 
         def guarded(g):
+            if analytic_case:
+                return g
             s = torch.std((g * sigma**2).reshape(g.shape[0], -1), dim=-1, correction=0)
             use_fb = s > self.denoiser_mean_error_threshold
             return torch.where(use_fb[:, None, None, None], fallback, g)

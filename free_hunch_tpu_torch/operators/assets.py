@@ -1,6 +1,6 @@
 """Bundled measurement/covariance data assets, read by path.
 
-Counterpart of ``free_hunch_tpu/operators/assets.py`` (:26-56). The data
+Counterpart of ``free_hunch_tpu/operators/assets.py`` (:26-70). The data
 files live once in the repository, under ``free_hunch_tpu/assets/``; reading
 a file there is not an import of the JAX package.
 """
@@ -32,9 +32,24 @@ def motion_blur_kernel() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def bicubic_sr_kernel(scale_factor: int) -> np.ndarray:
+    """25x25 bicubic kernel for x2/x3/x4 SR; x4 serves every factor above 4."""
+    data = np.load(_path("kernels", "bicubic_x234.npz"))
+    key = {2: "x2", 3: "x3", 4: "x4"}.get(scale_factor if scale_factor < 5 else 4, "x4")
+    return data[key]
+
+
+@functools.lru_cache(maxsize=None)
 def dct_variance(dataset: str = "imagenet") -> np.ndarray:
     """(3, 256, 256) per-DCT-coefficient variance prior."""
     return np.load(_path(f"dct_variance_{dataset}.npz"))["dct_variance"]
+
+
+@functools.lru_cache(maxsize=None)
+def recon_mse(dataset: str = "imagenet") -> dict:
+    """{'sigmas': (1001,), 'mse_list': (1001,)} analytic x0 variance table."""
+    data = np.load(_path(f"recon_mse_{dataset}.npz"))
+    return {"sigmas": data["sigmas"], "mse_list": data["mse_list"]}
 
 
 def load_dct_variance_from_dir(data_dir: str) -> np.ndarray:

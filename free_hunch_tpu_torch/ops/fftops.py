@@ -1,8 +1,11 @@
-"""FFT-diagonalised circular convolution for the blur operators.
+"""FFT-diagonalised convolution helpers for the measurement operators and the
+guidance solvers.
 
-Counterpart of ``free_hunch_tpu/ops/fftops.py``: only ``fft2``/``ifft2``,
-``p2o_np`` (:64) and ``fft_conv`` (:149) are on this slice's path. The FFTs
-are ``torch.fft`` (cuFFT on the card). Arrays are NCHW.
+Counterpart of ``free_hunch_tpu/ops/fftops.py``: ``fft2``/``ifft2``,
+``rfft2``/``irfft2`` (:45-61), ``p2o_np`` (:64), ``upsample``,
+``downsample``, ``splits`` (:105-131), ``fft_conv`` (:149) and the centred
+``fft2c``/``ifft2c`` (:154-166). The FFTs are ``torch.fft`` (cuFFT on the
+card). Arrays are NCHW.
 """
 from __future__ import annotations
 
@@ -10,14 +13,24 @@ import numpy as np
 import torch
 
 
-def fft2(x: torch.Tensor) -> torch.Tensor:
+def fft2(x: torch.Tensor, norm=None) -> torch.Tensor:
     """2-D FFT over the last two axes."""
-    return torch.fft.fft2(x)
+    return torch.fft.fft2(x, norm=norm)
 
 
-def ifft2(x: torch.Tensor) -> torch.Tensor:
+def ifft2(x: torch.Tensor, norm=None) -> torch.Tensor:
     """Inverse 2-D FFT over the last two axes."""
-    return torch.fft.ifft2(x)
+    return torch.fft.ifft2(x, norm=norm)
+
+
+def rfft2(x: torch.Tensor) -> torch.Tensor:
+    """Real-input 2-D FFT over the last two axes (W // 2 + 1 columns)."""
+    return torch.fft.rfft2(x)
+
+
+def irfft2(x: torch.Tensor, s) -> torch.Tensor:
+    """Inverse of ``rfft2`` onto the real (H, W) grid ``s``."""
+    return torch.fft.irfft2(x, s=s)
 
 
 def p2o_np(psf, shape) -> np.ndarray:
@@ -39,7 +52,46 @@ def p2o_np(psf, shape) -> np.ndarray:
     return np.fft.fftn(otf, axes=(-2, -1)).astype(np.complex64)
 
 
+def upsample(x: torch.Tensor, sf: int = 3) -> torch.Tensor:
+    """s-fold zero-filling upsampler (adjoint of ``downsample``)."""
+    if sf == 1:
+        return x
+    z = x.new_zeros(x.shape[:-2] + (x.shape[-2] * sf, x.shape[-1] * sf))
+    z[..., ::sf, ::sf] = x
+    return z
+
+
+def downsample(x: torch.Tensor, sf: int = 3) -> torch.Tensor:
+    """s-fold stride sampler keeping the upper-left pixel of each sf x sf patch."""
+    if sf == 1:
+        return x
+    return x[..., ::sf, ::sf]
+
+
+def splits(a: torch.Tensor, sf: int) -> torch.Tensor:
+    """Split (..., W, H) into sf*sf distinct blocks stacked on a new last
+    axis: (..., W/sf, H/sf, sf^2), chunked on rows first, then columns."""
+    *lead, w, h = a.shape
+    b = a.reshape(*lead, sf, w // sf, h)
+    b = torch.movedim(b, -3, -1)  # (..., W/sf, H, sf)
+    b = b.reshape(*lead, w // sf, sf, h // sf, b.shape[-1])
+    b = torch.movedim(b, -3, -1)  # (..., W/sf, H/sf, sf, sf)
+    return b.reshape(*lead, w // sf, h // sf, sf * sf)
+
+
 def fft_conv(x: torch.Tensor, FB: torch.Tensor) -> torch.Tensor:
     """Circular convolution via the precomputed OTF: real(ifft2(FB * fft2(x)))."""
     cdt = torch.complex128 if x.dtype == torch.float64 else torch.complex64
     return ifft2(FB * fft2(x.to(cdt))).real.to(x.dtype)
+
+
+def fft2c(x: torch.Tensor) -> torch.Tensor:
+    """Centred orthonormal 2-D FFT (phase retrieval's)."""
+    x = torch.fft.ifftshift(x, dim=(-2, -1))
+    return torch.fft.fftshift(fft2(x, norm="ortho"), dim=(-2, -1))
+
+
+def ifft2c(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``fft2c``."""
+    x = torch.fft.ifftshift(x, dim=(-2, -1))
+    return torch.fft.fftshift(ifft2(x, norm="ortho"), dim=(-2, -1))

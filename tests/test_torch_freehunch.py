@@ -8,8 +8,10 @@
 * The whole slice: 3 Heun steps at 32 px through the tiny UNet against
   ``sample_scan``, with S_churn = 0 and the same initial noise.
 
-JAX runs ``cg_coords='pixel'``: on the CPU its 'auto' would pick the
-Fourier-coordinate solver, which the port does not have yet."""
+Both run ``cg_coords='pixel'``, the card's solver ('auto' picks the
+Fourier-coordinate one on the CPU; tests/test_torch_solvers.py holds it).
+The helpers take the operator, so tests/test_torch_freehunch_ops.py runs
+the same comparisons on super-resolution and inpainting."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +28,7 @@ from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond as TPrecond
 from free_hunch_tpu_torch.operators import get_operator as tget_operator
 from free_hunch_tpu_torch.ops import lowrank as tlr
 from free_hunch_tpu_torch.samplers import edm as tedm
-from tests._torch_parity import tiny_pair
+from tests._torch_parity import one_thread, tiny_pair  # noqa: F401
 
 F32 = np.float32
 RES = 32
@@ -34,12 +36,14 @@ B = 2
 SHAPE = (B, 3, RES, RES)
 
 
-def _operators(sigma_s=0.1):
-    # the shipped 61x61 gaussian kernel, centre-cropped to the 32 px grid
-    j = jget_operator(name="gaussian_blur", in_shape=(1, 3, RES, RES), sigma_s=sigma_s)
-    t = tget_operator(name="gaussian_blur", in_shape=(1, 3, RES, RES), sigma_s=sigma_s,
-                      device="cpu")
-    return j, t
+def _operators(sigma_s=0.1, name="gaussian_blur"):
+    """The blur is the shipped 61x61 gaussian kernel, centre-cropped to the
+    32 px grid; super-resolution is x4; inpainting gets one explicit mask."""
+    kw = dict(in_shape=(1, 3, RES, RES), sigma_s=sigma_s)
+    if name == "inpainting":
+        m = np.random.default_rng(11).uniform(size=(1, 1, RES, RES)) > 0.2
+        kw["mask"] = np.repeat(m.astype(F32), 3, axis=1)
+    return jget_operator(name=name, **kw), tget_operator(name=name, device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -59,8 +63,8 @@ def prior_dir(tmp_path_factory):
     return str(d)
 
 
-def _mechs(data_dir=None, **kw):
-    jop, top = _operators()
+def _mechs(data_dir=None, op="gaussian_blur", **kw):
+    jop, top = _operators(name=op)
     base = dict(cond_scaling=1.0, image_base_covariance="dct_diagonal",
                 data_dir=data_dir,
                 init_denoiser_variance=1.0, init_noise_variance=80.0**2,
@@ -113,23 +117,20 @@ def _cov_probe_close(tcov, jcov, rtol):
 SIGMAS = [40.0, 14.0, 14.0, 6.0, 6.0, 2.5, 2.5, 1.2, 0.4]
 
 
-@pytest.mark.parametrize("grad,warm,fb_threshold", [
-    ("vjp", "b", 0.2), ("vjp", "prev", 1e9), ("covariance", "prev", 0.2),
-    ("hybrid", "prev", 1e9)])
-def test_x0_mean_update_teacher_forced_matches_jax(grad, warm, fb_threshold, prior_dir):
-    """fb_threshold=1e9 keeps the vjp gradient (the toy denoiser's updates
-    would otherwise trip the large-update fallback at every call)."""
-    jm, tm = _mechs(prior_dir, guidance_gradient=grad, cg_warm_start=warm,
-                    guidance_vjp_below=2.0, denoiser_mean_error_threshold=fb_threshold)
+def _teacher_forced(prior_dir, op="gaussian_blur", sigmas=SIGMAS, full_rank=True, **mech_kw):
+    """Each guided call of ``sigmas`` in both packages, the port's state
+    taken from the JAX package's before every call; x0, the covariance, the
+    recycled u and the CG count compared after it."""
+    jm, tm = _mechs(prior_dir, op=op, **mech_kw)
     rng = np.random.default_rng(0)
-    y = rng.uniform(-1, 1, SHAPE).astype(F32)
+    y = rng.uniform(-1, 1, (B,) + tuple(tm.forward_operator.out_shape[1:])).astype(F32)
     js = jm.init_state(B, SHAPE[1:])
     step = jax.jit(lambda x, s, st: jm.x0_mean_update(_jdenoise, x, jnp.asarray(y), s, st))
-    x = rng.normal(size=SHAPE).astype(F32) * SIGMAS[0]
+    x = rng.normal(size=SHAPE).astype(F32) * sigmas[0]
     ranks = []
-    for i, sigma in enumerate(SIGMAS):
+    for i, sigma in enumerate(sigmas):
         s = float(F32(sigma))
-        if i and SIGMAS[i - 1] == sigma:     # second call at one sigma: move x
+        if i and sigmas[i - 1] == sigma:     # second call at one sigma: move x
             x = x + rng.normal(size=SHAPE).astype(F32) * 0.05 * s
         elif i:
             x = rng.normal(size=SHAPE).astype(F32) * s
@@ -149,7 +150,18 @@ def test_x0_mean_update_teacher_forced_matches_jax(grad, warm, fb_threshold, pri
                                    atol=1e-4 * np.abs(ju).max())
         assert ts.cg_niter == int(js.cg_niter), (i, ts.cg_niter, int(js.cg_niter))
         ranks.append(int(np.asarray(js.cov.k).max()))
-    assert max(ranks) == 8, "the BFGS window must fill the capacity (compress)"
+    if full_rank:
+        assert max(ranks) == 8, "the BFGS window must fill the capacity (compress)"
+
+
+@pytest.mark.parametrize("grad,warm,fb_threshold", [
+    ("vjp", "b", 0.2), ("vjp", "prev", 1e9), ("covariance", "prev", 0.2),
+    ("hybrid", "prev", 1e9)])
+def test_x0_mean_update_teacher_forced_matches_jax(grad, warm, fb_threshold, prior_dir):
+    """fb_threshold=1e9 keeps the vjp gradient (the toy denoiser's updates
+    would otherwise trip the large-update fallback at every call)."""
+    _teacher_forced(prior_dir, guidance_gradient=grad, cg_warm_start=warm,
+                    guidance_vjp_below=2.0, denoiser_mean_error_threshold=fb_threshold)
 
 
 def test_schedule_and_capacity_equal_jax():
@@ -182,7 +194,7 @@ def test_init_diag_truncation_equals_jax():
     assert ts.prev_u.shape == SHAPE and ts.cov.Ut.shape == (B, 8, want.size)
 
 
-def _run_slice(prior_dir, solver):
+def _run_slice(prior_dir, solver, op="gaussian_blur", **mech_kw):
     """The whole slice at 32 px in both packages: tiny UNet (same weights),
     dct_diagonal Free Hunch with vjp guidance and recycled CG starts, three
     steps of ``solver``. Returns the JAX and the torch trajectories, each
@@ -195,11 +207,11 @@ def _run_slice(prior_dir, solver):
               discretization="edm", schedule="linear", scaling="none")
     xs, s0 = jedm.prepare_schedule(**kw)
     cap = jedm.required_cov_capacity(xs)
-    jm, tm = _mechs(prior_dir, cov_capacity=cap, cg_warm_start="prev",
-                    guidance_gradient="vjp")
+    jm, tm = _mechs(prior_dir, op=op, **dict(dict(cov_capacity=cap, cg_warm_start="prev",
+                                                  guidance_gradient="vjp"), **mech_kw))
     rng = np.random.default_rng(1)
     noise = rng.normal(size=SHAPE).astype(F32)
-    y = rng.uniform(-1, 1, SHAPE).astype(F32)
+    y = rng.uniform(-1, 1, (B,) + tuple(tm.forward_operator.out_shape[1:])).astype(F32)
 
     @jax.jit
     def run(noise_, y_):
