@@ -8,6 +8,7 @@
     python3 chip_smoke.py --gn                 # K1 and K2 alone: per pass and
                                                # per call, every forward shape
     python3 chip_smoke.py --mechanisms         # phases 3b, 4b-4d alone
+    python3 chip_smoke.py --ddnm               # phases 3c and 4e alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -33,6 +34,13 @@ Phases, in order; any failure raises and exits non-zero:
    inpainting (one mask drawn on the CPU), and DPS on colorization,
    denoising and phase retrieval: each guided call on the card from the
    CPU slice's inputs and state.
+3c. DDNM+ and Free Hunch variants: DDNM+ at 32 px (f32 torso, sigma_y
+   0.1, eta 1.0, 10 steps) on Deblurring, SuperResolution x4 and
+   Inpainting, each step on the card from the CPU's x_t with the same
+   ancestral draws; and Free Hunch with ``algebra_dtype='float64'`` and
+   through ``wrap_precond(kind='cosine')`` on the three operators of 3b,
+   each guided call on the card from the CPU's inputs and state, under
+   3b's limits (the f64 run's wall time beside the f32 one's).
 4. slices: the ``bench.py`` protocol in the port. Guided 256x256
    gaussian-blur deblurring with Free Hunch (``online_covariance``,
    DCT-diagonal prior, tailored CG recycling the previous stage's solution,
@@ -53,6 +61,13 @@ Phases, in order; any failure raises and exits non-zero:
 4d. one pixel-space and one Fourier-coordinate deblur CG iteration at
    256 px, batch 8, on the same system: the reading behind
    ``cg_coords='auto'``.
+4e. DDNM+ through the raw 256 px bf16 UNet on the DDPM grid, batch 8,
+   twice the Heun step count (60 steps), sigma_y 0.1, eta 1.0, on the
+   gaussian blur, SR x4 and inpainting with a random mask: wall time, peak
+   memory, ||A x - y|| / ||y||, the final sample, and K1's launches, equal
+   to the hooks' GroupNorm32 count; each operator's count joins K1's
+   entry of the ``kernels`` line as ``launches_ddnm_<operator>``. The
+   gaussian blur's run once more under the profiler.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -80,12 +95,12 @@ from free_hunch_tpu_torch.models import loading
 from free_hunch_tpu_torch.models.calibrate import calibrate_qscales
 from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
 from free_hunch_tpu_torch.models.unet import GroupNorm32, ResBlock, create_model
-from free_hunch_tpu_torch.operators import assets, get_operator, masks
+from free_hunch_tpu_torch.operators import assets, get_operator, masks, svd
 from free_hunch_tpu_torch.ops import _nvcc
 from free_hunch_tpu_torch.ops import gn_quant as gq
 from free_hunch_tpu_torch.ops import groupnorm as gn
 from free_hunch_tpu_torch.ops import quant as q
-from free_hunch_tpu_torch.samplers import edm
+from free_hunch_tpu_torch.samplers import ddnm, edm
 
 ROOT = Path(__file__).resolve().parent
 SETUP_256 = ROOT / "models" / "256x256_diffusion_uncond_setup.txt"
@@ -116,6 +131,11 @@ K3_ENTRY = dict(name="int8_conv", route="cuda",
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def time_ms(fn, reps: int, graph: bool = False) -> float:
@@ -826,14 +846,14 @@ class Recorder:
         return x0, self.state
 
 
-def free_hunch(op, res: int, cap: int, prior: str):
-    """The bench.py mechanism configuration."""
+def free_hunch(op, res: int, cap: int, prior: str, **kw):
+    """The bench.py mechanism configuration (``kw`` overrides a knob)."""
     return choose_conditioning_mechanism("online_covariance")(
         cond_scaling=1.0, forward_operator=op, clip_x0_mean=False,
         image_base_covariance=prior, init_denoiser_variance=1.0,
         init_noise_variance=80.0**2, data_dim=3 * res * res, cov_capacity=cap,
         solver_type="customcuda", max_rtol=1.0, cg_maxiter=5000, cg_coords="pixel",
-        cg_warm_start="prev", guidance_gradient="vjp", guidance_vjp_below=2.0)
+        cg_warm_start="prev", guidance_gradient="vjp", guidance_vjp_below=2.0, **kw)
 
 
 def schedule(precond, steps: int):
@@ -902,13 +922,20 @@ MECH_REF_CASES = tuple([(m, o) for m in MECHANISMS for o in MECH_OPS]
 # the limits of ``reference_phase``, per guided call: each call's x0 before
 # the last within 1e-3 of its own max |x0|, the last (sigma 0.01) within 4e-3
 MECH_REF_CALL_REL, MECH_REF_LAST_ABS = 1e-3, 4e-3
+# Free Hunch variants of phase 3c: name -> (mechanism knobs, preconditioner)
+FH_VARIANTS = {"online_covariance_f64": (dict(algebra_dtype="float64"), "linear"),
+               "online_covariance_cosine": ({}, "cosine")}
+FH_VARIANT_CASES = tuple((m, o) for m in FH_VARIANTS for o in MECH_OPS)
 
 
 def mechanism(name: str, op, res: int, cap: int):
-    """Free Hunch as ``reference_phase`` runs it (flat DCT prior), or a
-    stateless mechanism with its defaults at cond_scaling 1."""
+    """Free Hunch as ``reference_phase`` runs it (flat DCT prior), one of
+    its ``FH_VARIANTS``, or a stateless mechanism with its defaults at
+    cond_scaling 1."""
     if name == "online_covariance":
         return free_hunch(op, res, cap, "dct_diagonal_noinfo")
+    if name in FH_VARIANTS:
+        return free_hunch(op, res, cap, "dct_diagonal_noinfo", **FH_VARIANTS[name][0])
     return choose_conditioning_mechanism(name)(cond_scaling=1.0, forward_operator=op)
 
 
@@ -978,17 +1005,19 @@ class MechanismReference:
         launches. Without ``teacher`` the slice runs and records its calls;
         with it (the CPU side's result) each of its calls runs again here.
         ``nudge`` multiplies every denoiser output by (1 + nudge N(0, 1)),
-        a stand-in for another device's rounding."""
-        if dev not in self.models:
+        a stand-in for another device's rounding. A ``FH_VARIANTS`` case
+        runs through its preconditioner."""
+        kind = FH_VARIANTS.get(mech, ({}, "linear"))[1]
+        if (dev, kind) not in self.models:
             with torch.device(dev):
                 model = create_model(**self.tiny)
             model.load_state_dict(self.state)
-            self.models[dev] = loading.wrap_precond(model.eval().requires_grad_(False),
-                                                    {"image_size": self.res})
+            self.models[dev, kind] = loading.wrap_precond(
+                model.eval().requires_grad_(False), {"image_size": self.res}, kind)
         if op_name not in self.ys:
             self.ys[op_name] = self.operator(op_name, "cpu").forward(
                 torch.as_tensor(self.truth), noiseless=True)
-        precond = denoise = self.models[dev]
+        precond = denoise = self.models[dev, kind]
         if nudge:
             rng = np.random.default_rng(1)
 
@@ -1002,6 +1031,8 @@ class MechanismReference:
                              edm.required_cov_capacity(xs))
         y = self.ys[op_name].to(dev)
         before = gn.launches
+        sync(dev)
+        t0 = time.perf_counter()
         if teacher is None:
             rec = CallRecorder(mech_obj)
             edm.sample_loop(denoise, rec, torch.as_tensor(self.noise, device=dev), y, xs,
@@ -1013,7 +1044,9 @@ class MechanismReference:
                 x0, new = mech_obj(denoise, c["x_t"].to(dev), y, c["sigma"],
                                    state_to(c["state"], dev))
                 calls.append(dict(x0=x0.cpu().numpy(), niter=new.cg_niter))
-        return dict(calls=calls, launches=gn.launches - before)
+        sync(dev)
+        return dict(calls=calls, launches=gn.launches - before,
+                    wall_s=time.perf_counter() - t0)
 
 
 def mechanism_reference_failures(cpu: dict, card: dict) -> tuple:
@@ -1606,6 +1639,247 @@ def mechanism_phases(model, model_args, args) -> dict:
     return out
 
 
+# -- phases 3c and 4e: DDNM+, and Free Hunch in f64 and on the cosine grid ----
+
+DDNM_OPS = ("gaussian_blur", "super_resolution", "inpainting")
+# each step's x_next on the card within this share of its own max |x|
+DDNM_REF_STEP_REL = 1e-3
+DDNM_MASK = {"mask_type": "random", "mask_prob_range": (0.1, 0.3)}
+
+
+def ddnm_operator(name: str, res: int, dev, seed: int, rows: int = 0):
+    """The DDNM+ operators: ``Deblurring`` of the bundled 61x61 gaussian
+    kernel, block super-resolution x4, or inpainting with a random mask
+    (p ~ U(0.1, 0.3), ``eval.py``'s defaults) drawn from a seeded CPU
+    generator: shared by the batch, or with ``rows`` the per-row operator
+    of that mask repeated ``rows`` times."""
+    if name == "gaussian_blur":
+        return ddnm.build_svd_operator({"name": name}, res, device=dev)
+    if name == "super_resolution":
+        return ddnm.build_svd_operator({"name": name, "scale_factor": 4}, res, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    opt = dict(DDNM_MASK, image_size=res)
+    if rows:
+        return svd.create_inpainting_operator(3, res, opt, generator=[gen], repeats=rows,
+                                              device=dev)
+    return svd.create_inpainting_operator(3, res, opt, generator=gen, device=dev)
+
+
+class DDNMReference:
+    """The 32 px witness of DDNM+: seeded weights of the tiny f32 UNet,
+    noise, a ground truth measured once on the CPU by each operator with
+    sigma_y 0.1 noise, and every step's ancestral draw (``noise_seq``);
+    eta 1.0 on a 10-step DDPM grid.
+
+    The CPU runs the sampler; the card runs each step from the CPU's x_t
+    (teacher forcing) and each step's x_next is compared. Compared along
+    the whole trajectory instead, Eq. 12's division of epsilon's error by
+    sqrt(alpha-bar) (about 85 at the first step here, 160 on a 60-step
+    grid) would carry one step's rounding into every later step."""
+
+    res, batch, steps, sigma_y, eta = 32, 2, 10, 0.1, 1.0
+
+    def __init__(self, seed: int):
+        res, batch = self.res, self.batch
+        self.seed = seed
+        self.tiny = dict(TINY, dtype=torch.float32)
+        self.state = loading.random_init_(create_model(**self.tiny), seed=seed).state_dict()
+        rng = np.random.default_rng(seed + 3)
+        self.noise = rng.normal(size=(batch, 3, res, res)).astype(np.float32)
+        self.truth = rng.uniform(-1, 1, (batch, 3 * res * res)).astype(np.float32)
+        n = len(ddnm.ddnm_steps(self.steps))
+        self.noise_seq = rng.normal(size=(n, batch, 3, res, res)).astype(np.float32)
+        self.y_noise = rng.normal(size=(batch, 3 * res * res)).astype(np.float32)
+        self.models, self.ys = {}, {}
+
+    def eps_fn(self, dev, nudge: float = 0.0):
+        """The raw UNet's epsilon channels; ``nudge`` multiplies them by
+        (1 + nudge N(0, 1)), a stand-in for another device's rounding."""
+        if dev not in self.models:
+            with torch.device(dev):
+                model = create_model(**self.tiny)
+            model.load_state_dict(self.state)
+            self.models[dev] = model.eval().requires_grad_(False)
+        model = self.models[dev]
+        rng = np.random.default_rng(1)
+
+        def eps(x, t):
+            e = model(x, t)[:, :3]
+            if nudge:
+                e = e * (1 + nudge * torch.as_tensor(rng.normal(size=tuple(e.shape)),
+                                                     dtype=e.dtype, device=e.device))
+            return e
+        return eps
+
+    def run(self, op_name: str, dev: str, teacher=None, nudge: float = 0.0) -> dict:
+        """One side: each step's x_next and the K1 launches. Without
+        ``teacher`` the sampler runs; with it (the CPU side's result) each
+        of its steps runs again here from its x_t."""
+        a_funcs = ddnm_operator(op_name, self.res, dev, self.seed)
+        if op_name not in self.ys:
+            cpu_op = ddnm_operator(op_name, self.res, "cpu", self.seed)
+            y = cpu_op.A(torch.as_tensor(self.truth))
+            self.ys[op_name] = y + self.sigma_y * torch.as_tensor(self.y_noise[:, :y.shape[1]])
+        y = self.ys[op_name].to(dev)
+        eps = self.eps_fn(dev, nudge)
+        seq = torch.as_tensor(self.noise_seq, device=dev)
+        before = gn.launches
+        sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if teacher is None:
+                x, traj = ddnm.ddnm_sample(eps, a_funcs, torch.as_tensor(self.noise, device=dev),
+                                           y, num_steps=self.steps, sigma_y=self.sigma_y,
+                                           eta=self.eta, return_trajectory=True, noise_seq=seq)
+                x_next = [t.cpu().numpy() for t in traj]
+            else:
+                steps = ddnm.ddnm_steps(self.steps)
+                xts = [self.noise] + teacher["x_next"][:-1]
+                x_next = []
+                for i, (st, xt) in enumerate(zip(steps, xts)):
+                    xt = torch.as_tensor(xt, device=dev)
+                    nxt, _ = ddnm.ddnm_step(eps, a_funcs, y, xt, torch.zeros_like(xt), st,
+                                            seq[i], sigma_y=self.sigma_y, eta=self.eta)
+                    x_next.append(nxt.cpu().numpy())
+        sync(dev)
+        return dict(x_next=x_next, launches=gn.launches - before,
+                    wall_s=time.perf_counter() - t0)
+
+
+def ddnm_reference_failures(cpu: dict, card: dict) -> tuple:
+    """(per-step max |dx|, per-step limit, what breaks the limits) of one
+    DDNM+ case, card against CPU."""
+    want, got = cpu["x_next"], card["x_next"]
+    limit = np.array([DDNM_REF_STEP_REL * np.abs(w).max() for w in want])
+    err = np.array([np.abs(g - w).max() for g, w in zip(got, want)])
+    bad = []
+    if len(got) != len(want) or not all(np.isfinite(g).all() for g in got):
+        bad.append("card output not finite or missing steps")
+    bad += [f"step {i} max |dx| {e:.3g} > {lim:.3g}"
+            for i, (e, lim) in enumerate(zip(err, limit)) if not e <= lim]
+    return err, limit, bad
+
+
+def ddnm_reference_phase(seed: int, card: str = "cuda"):
+    """Phase 3c: DDNM+ per step on the three operators, and Free Hunch with
+    f64 algebra and through the cosine preconditioner per guided call
+    (phase 3b's limits and equal CG niter), card (K1) against CPU (plain
+    version); the f64 run's wall time beside the f32 one's. Any case
+    outside its limits or without K1 launches on the card raises."""
+    failed = []
+    t0 = time.perf_counter()
+    ref = DDNMReference(seed)
+    for op in DDNM_OPS:
+        cpu = ref.run(op, "cpu")
+        gpu = ref.run(op, card, teacher=cpu)
+        err, limit, bad = ddnm_reference_failures(cpu, gpu)
+        if cpu["launches"] != 0 or gpu["launches"] == 0:
+            bad.append(f"K1 launches cpu {cpu['launches']} card {gpu['launches']}")
+        say(f"DDNM+ reference 32 px on {op}, card vs CPU, per step: max |dx| "
+            f"{[float(f'{e:.3g}') for e in err]} (limits "
+            f"{[float(f'{v:.3g}') for v in limit]}), card K1 launches {gpu['launches']}"
+            + (f"; FAILS: {bad}" if bad else ""))
+        if bad:
+            failed.append(("ddnm", op, bad))
+    mref = MechanismReference(seed)
+    walls = {}
+    for mech, op in (("online_covariance", "gaussian_blur"),) + FH_VARIANT_CASES:
+        cpu = mref.run(mech, op, "cpu")
+        gpu = mref.run(mech, op, card, teacher=cpu)
+        if op == "gaussian_blur" and mech in ("online_covariance", "online_covariance_f64"):
+            # the first run on the card carries its warm-up: time two more
+            walls[mech] = [mref.run(mech, op, card, teacher=cpu)["wall_s"] for _ in range(2)]
+        err, limit, bad = mechanism_reference_failures(cpu, gpu)
+        if cpu["launches"] != 0 or gpu["launches"] == 0:
+            bad.append(f"K1 launches cpu {cpu['launches']} card {gpu['launches']}")
+        say(f"Free Hunch reference 32 px {mech} on {op}, card vs CPU, per guided call: max "
+            f"|dx0| {[float(f'{e:.3g}') for e in err]} (limits "
+            f"{[float(f'{v:.3g}') for v in limit]}), CG niter "
+            f"{[c['niter'] for c in gpu['calls']]}, card wall {gpu['wall_s']:.3f} s"
+            + (f"; FAILS: {bad}" if bad else ""))
+        if bad:
+            failed.append((mech, op, bad))
+    say(f"Free Hunch on gaussian_blur, 5 guided calls on the card from the CPU's state, "
+        f"two warm runs each: f32 algebra {walls['online_covariance']} s, f64 algebra "
+        f"{walls['online_covariance_f64']} s of wall time")
+    say(f"DDNM+ and Free Hunch variant reference: {len(DDNM_OPS) + len(FH_VARIANT_CASES)} "
+        f"cases in {time.perf_counter() - t0:.1f} s, {len(failed)} outside the limits")
+    if failed:
+        raise AssertionError(f"DDNM+ / Free Hunch variant reference: card and CPU disagree: "
+                             f"{failed}")
+
+
+def ddnm_phase(model, model_args, batch: int, steps: int, seed: int) -> dict:
+    """Phase 4e: DDNM+ through the raw 256 px UNet on the DDPM grid (sigma_y
+    0.1, eta 1.0) on the three operators, inpainting through the per-row
+    operator: wall time, peak memory, the final sample, ||A x - y|| / ||y||
+    and K1's launches against the hooks' count of GroupNorm32 calls, read
+    over each run; the gaussian blur's run once more under the profiler.
+    Returns each operator's K1 launches."""
+    dev = next(model.parameters()).device
+    res = model_args["image_size"]
+    calls = Counter()
+
+    def count_gn(mod, args):
+        calls["gn"] += 1
+
+    hooks = [m.register_forward_pre_hook(count_gn) for m in model.modules()
+             if isinstance(m, GroupNorm32)]
+
+    def eps_fn(x, t):
+        return model(x, t)[:, :3]
+
+    out = {}
+    say(f"DDNM+ slices: {res}x{res}, batch {batch}, {steps} steps, sigma_y 0.1, eta 1.0, "
+        f"the raw UNet on the DDPM grid")
+    try:
+        for op_name in DDNM_OPS:
+            a_funcs = ddnm_operator(op_name, res, dev, seed, rows=batch)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            truth = torch.rand((batch, 3 * res * res), generator=gen, device=dev) * 2 - 1
+            with torch.no_grad():
+                y = a_funcs.A(truth)
+            y = y + 0.1 * torch.randn(y.shape, generator=gen, device=dev)
+            noise = torch.randn((batch, 3, res, res), generator=gen, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            calls.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            x, _ = ddnm.ddnm_sample(eps_fn, a_funcs, noise, y, num_steps=steps, sigma_y=0.1,
+                                    eta=1.0, generator=gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+            with torch.no_grad():
+                resid = float(torch.linalg.norm(a_funcs.A(x.reshape(batch, -1)) - y)
+                              / torch.linalg.norm(y))
+            finite = bool(torch.isfinite(x).all())
+            say(f"  DDNM+ {op_name}: wall {wall:.3f} s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, y {tuple(y.shape)}, "
+                f"final x finite {finite} shape {tuple(x.shape)} mean {float(x.mean()):.4f} "
+                f"std {float(x.std()):.4f}, ||A x - y|| / ||y|| {resid:.4f}, K1 launches "
+                f"{launches['groupnorm_silu']} (hooks: {calls['gn']} GroupNorm32 calls, "
+                f"{launches['groupnorm_silu'] / steps:g} per step)")
+            if not finite or tuple(x.shape) != (batch, 3, res, res) or not np.isfinite(resid):
+                raise AssertionError(f"DDNM+ {op_name}: final x {tuple(x.shape)} finite "
+                                     f"{finite}, residual {resid}")
+            if not 0 < launches["groupnorm_silu"] == calls["gn"]:
+                raise AssertionError(f"DDNM+ {op_name}: {launches['groupnorm_silu']} K1 "
+                                     f"launches, hooks say {calls['gn']}")
+            out[op_name] = launches["groupnorm_silu"]
+            if op_name == DDNM_OPS[0]:
+                device_breakdown(lambda: ddnm.ddnm_sample(
+                    eps_fn, a_funcs, noise, y, num_steps=steps, sigma_y=0.1, eta=1.0,
+                    generator=gen))
+            del a_funcs, x, y
+            torch.cuda.empty_cache()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -1621,6 +1895,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mechanisms", action="store_true", help="the mechanism reference, the "
                     "SR and inpainting slices, the sweep and the CG-coordinates reading alone; "
                     "no result lines")
+    ap.add_argument("--ddnm", action="store_true", help="phases 3c and 4e alone: the DDNM+ "
+                    "and Free Hunch variant reference and the 256 px DDNM+ slices; no result "
+                    "lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -1655,16 +1932,26 @@ def main(argv=None) -> int:
         mechanism_phases(model, model_args, args)
         say(f"chip_smoke --mechanisms wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args.ddnm:
+        ddnm_reference_phase(args.seed)
+        ddnm_phase(model, model_args, args.batch, 2 * args.steps, args.seed)
+        say(f"chip_smoke --ddnm wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     res = model_args["image_size"]
     gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"))
     reference_phase(args.seed)
     mechanism_reference_phase(args.seed)
+    ddnm_reference_phase(args.seed)
     launches, walls = slice_phase(model, model_args, args.batch, args.steps, args.runs,
                                   args.seed, "bf16")
     say(f"bf16 sampling wall time per run (s): {[round(w, 3) for w in walls]} on {smi}")
     gn_entry["launches"] = launches["groupnorm_silu"]
     for op_name, op_launches in mechanism_phases(model, model_args, args).items():
         gn_entry[f"launches_{op_name}"] = op_launches["groupnorm_silu"]
+    # DDNM+ doubles the Heun step count, as generate_conditional.py does
+    for op_name, n in ddnm_phase(model, model_args, args.batch, 2 * args.steps,
+                                 args.seed).items():
+        gn_entry[f"launches_ddnm_{op_name}"] = n
     del model
     torch.cuda.empty_cache()
 
@@ -1688,6 +1975,7 @@ def main(argv=None) -> int:
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
                     ("groupnorm_silu", gn_entry["launches_super_resolution"]),
                     ("groupnorm_silu", gn_entry["launches_inpainting"]),
+                    *(("groupnorm_silu", gn_entry[f"launches_ddnm_{o}"]) for o in DDNM_OPS),
                     ("groupnorm_silu", qlaunches["groupnorm_silu"]),
                     ("gn_silu_quant", k2_entry["launches"]),
                     ("int8_conv", k3_entry["launches"])):

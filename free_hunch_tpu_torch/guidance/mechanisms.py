@@ -60,9 +60,9 @@ def choose_conditioning_mechanism(name: str):
         "diffpir": DiffPIR,
     }
     if name == "ddnm":
-        raise ValueError("ddnm runs through the dedicated DDNM+ sampler (the JAX "
-                         "package's samplers/ddnm.py, not ported yet), not a "
-                         "conditioning mechanism")
+        raise ValueError("ddnm runs through the dedicated DDNM+ sampler "
+                         "(free_hunch_tpu_torch.samplers.ddnm), not a conditioning "
+                         "mechanism")
     if name not in table:
         raise ValueError(f"Unknown conditioning mechanism: {name}")
     return table[name]
@@ -264,8 +264,10 @@ class FreeHunch(ConditioningMechanism):
     ``mle_sigma_thres`` against the recon_mse variance instead, with
     ``use_analytic_var_at_end``), and the guidance gradient (vjp of ``mat``
     through the UNet, with the large-update fallback Sigma_0 mat / sigma^2).
-    The knobs and their reasons are the JAX class's; ``algebra_dtype`` other
-    than float32 and ``cov_partition`` are not ported and raise."""
+    The knobs and their reasons are the JAX class's. ``algebra_dtype``
+    ('float32', the default, or 'float64') is the dtype of the covariance
+    state, the basis changes and the CG solve; the denoiser and its vjp stay
+    f32. ``cov_partition`` (a sharded covariance) is not ported and raises."""
     image_base_covariance: str = "identity"   # identity | dct_diagonal | dct_diagonal_noinfo
     init_denoiser_variance: float = 1.0
     init_noise_variance: float = 1.0
@@ -299,8 +301,9 @@ class FreeHunch(ConditioningMechanism):
     cov_partition: Optional[Tuple[Optional[str], Optional[str]]] = None
 
     def __post_init__(self):
-        if self.algebra_dtype not in (None, "float32"):
-            raise NotImplementedError("algebra_dtype other than float32 is not ported")
+        if self.algebra_dtype not in (None, "float32", "float64"):
+            raise ValueError(f"algebra_dtype must be None, 'float32' or 'float64', "
+                             f"got {self.algebra_dtype!r}")
         if self.cov_partition is not None:
             raise NotImplementedError("cov_partition (sharded covariance) is not ported")
         if self.guidance_gradient not in ("vjp", "covariance", "hybrid"):
@@ -311,6 +314,11 @@ class FreeHunch(ConditioningMechanism):
                              f"{self.cg_warm_start!r}")
         if self.transport_formula not in ("telescoped", "two_inverse"):
             raise ValueError(f"unknown transport_formula {self.transport_formula!r}")
+
+    @property
+    def _adt(self) -> torch.dtype:
+        """The algebra dtype."""
+        return torch.float64 if self.algebra_dtype == "float64" else torch.float32
 
     # -- basis --------------------------------------------------------------
 
@@ -332,11 +340,11 @@ class FreeHunch(ConditioningMechanism):
             dv = (assets.load_dct_variance_from_dir(self.data_dir) if self.data_dir
                   else assets.dct_variance(self.dataset))
             # other resolutions truncate the 256 px prior, as the JAX package does
-            flat = np.asarray(dv, np.float32).reshape(-1)[:d]
-            return torch.as_tensor(flat, device=device)
+            flat = np.asarray(dv, np.float64 if self._adt == torch.float64 else np.float32)
+            return torch.as_tensor(flat.reshape(-1)[:d], device=device)
         if self.image_base_covariance in ("dct_diagonal_noinfo", "identity"):
             return torch.full((d,), float(self.init_denoiser_variance),
-                              dtype=torch.float32, device=device)
+                              dtype=self._adt, device=device)
         raise ValueError(f"unknown image_base_covariance {self.image_base_covariance!r}")
 
     def init_state(self, batch: int, img_shape: Tuple[int, ...]) -> FreeHunchState:
@@ -344,11 +352,11 @@ class FreeHunch(ConditioningMechanism):
         d = int(np.prod(img_shape))
         cov = cov_mod.init_state(self._init_diag(img_shape, dev), batch, d,
                                  self.cov_capacity)
-        zeros = torch.zeros((batch,) + tuple(img_shape), dtype=torch.float32, device=dev)
+        zeros = torch.zeros((batch,) + tuple(img_shape), dtype=self._adt, device=dev)
         u_shape = (batch,) + tuple(self.forward_operator.out_shape[1:])
         return FreeHunchState(
             cov=cov, prev_sigma=0.0, prev_x=zeros, prev_mean=zeros,
-            prev_u=torch.zeros(u_shape, dtype=torch.float32, device=dev), step=0,
+            prev_u=torch.zeros(u_shape, dtype=self._adt, device=dev), step=0,
             cg_niter=0, cg_resnorm=torch.zeros((), device=dev),
             cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
 
@@ -362,13 +370,16 @@ class FreeHunch(ConditioningMechanism):
     def x0_mean_update(self, denoise, x_t, y, sigma, state: FreeHunchState):
         img_shape = x_t.shape[1:]
         sigma = float(np.float32(sigma))
-        x_t = x_t.float()
+        # the denoiser and its vjp run in f32; the covariance algebra and the
+        # CG solve in the algebra dtype, which an f32 sigma converts to exactly
         if self.guidance_gradient == "covariance":
             with torch.no_grad():
-                x0, _ = denoise(x_t, sigma)
+                x0, _ = denoise(x_t.float(), sigma)
             pullback = None
         else:
-            x0, _, pullback = _denoise_with_vjp(denoise, x_t, sigma)
+            x0, _, pullback = _denoise_with_vjp(denoise, x_t.float(), sigma)
+        adt = self._adt
+        x_t, y, x0_a = x_t.to(adt), y.to(adt), x0.to(adt)
 
         has_prev = state.step > 0
         sigma_changed = has_prev and sigma != state.prev_sigma
@@ -401,7 +412,7 @@ class FreeHunch(ConditioningMechanism):
             if not self.use_analytical_score_time_update and changed:
                 with torch.no_grad():
                     m, _ = denoise(state.prev_x.float(), sigma)
-                prev_mean_b = self._to_basis(m)
+                prev_mean_b = self._to_basis(m.to(adt))
             # (3) gated BFGS space update
             if changed and in_window:
                 params = cov_mod.CovParams(
@@ -409,7 +420,7 @@ class FreeHunch(ConditioningMechanism):
                     curvature_guard=self.bfgs_curvature_guard,
                     secant_novelty_min=self.bfgs_secant_novelty_min)
                 cov = cov_mod.space_update(cov, sigma, prev_x_b, self._to_basis(x_t),
-                                           prev_mean_b, self._to_basis(x0), params)
+                                           prev_mean_b, self._to_basis(x0_a), params)
         elif sigma_changed:
             cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma)
 
@@ -427,8 +438,8 @@ class FreeHunch(ConditioningMechanism):
             # below the threshold the solve takes the recon_mse variance on
             # the scipy budget, with the mechanism's CG knobs
             var = _analytic_var(self.dataset, sigma)
-            solved = choose_solver(self.forward_operator, y.float(), x0,
-                                   theta0_var=torch.full_like(x0, var), method="scipy",
+            solved = choose_solver(self.forward_operator, y, x0_a,
+                                   theta0_var=torch.full_like(x0_a, var), method="scipy",
                                    max_rtol=self.max_rtol, sigma_t=sigma,
                                    use_rtol_func=self.use_rtol_func, maxiter=self.cg_maxiter,
                                    return_info=True, precondition=self.cg_precondition,
@@ -436,7 +447,7 @@ class FreeHunch(ConditioningMechanism):
                                    rtol_floor=self.rtol_floor,
                                    track_best=self.cg_track_best, **recycle_kw)
         else:
-            solved = choose_solver(self.forward_operator, y.float(), x0,
+            solved = choose_solver(self.forward_operator, y, x0_a,
                                    cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
                                    method=self.solver_type, max_rtol=self.max_rtol,
                                    sigma_t=sigma, use_rtol_func=self.use_rtol_func,
@@ -455,9 +466,9 @@ class FreeHunch(ConditioningMechanism):
         # (5) guidance gradient with the large-update fallback; where mat was
         # solved against var * I, every non-vjp gradient is var * mat / sigma^2
         if analytic_case:
-            fallback = var * mat / sigma**2
+            fallback = (var * mat / sigma**2).float()
         else:
-            fallback = self.cov_matvec_pixel(cov, mat) / sigma**2
+            fallback = (self.cov_matvec_pixel(cov, mat) / sigma**2).float()
 
         def guarded(g):
             if analytic_case:
@@ -469,9 +480,10 @@ class FreeHunch(ConditioningMechanism):
         if self.guidance_gradient == "covariance":
             grad = fallback
         elif self.guidance_gradient == "hybrid":
-            grad = guarded(pullback(mat)) if sigma < self.guidance_vjp_below else fallback
+            grad = (guarded(pullback(mat.float())) if sigma < self.guidance_vjp_below
+                    else fallback)
         else:
-            grad = guarded(pullback(mat))
+            grad = guarded(pullback(mat.float()))
         update = grad * self.cond_scaling * sigma**2
         if self.guidance_update_bound is not None:
             gb = float(self.guidance_update_bound)
@@ -482,7 +494,7 @@ class FreeHunch(ConditioningMechanism):
         # a non-finite recycled start would poison every later solve
         u_next = torch.where(torch.isfinite(u_next), u_next, torch.zeros_like(u_next))
         new_state = FreeHunchState(
-            cov=cov, prev_sigma=sigma, prev_x=x_t, prev_mean=x0, prev_u=u_next,
+            cov=cov, prev_sigma=sigma, prev_x=x_t, prev_mean=x0_a, prev_u=u_next.to(adt),
             step=state.step + 1, cg_niter=cg_info.niter,
             cg_resnorm=torch.mean(cg_info.residual_norm).float(),
             cg_optfrac=torch.mean(cg_info.optimal.float()),

@@ -171,16 +171,15 @@ def bench_qscales(state_dict_path: str, model_args: dict, state_dict: dict, *,
     draws from seeded generators are max-merged; the JAX package measured
     3 draws at margin 1.1 as the defaults that keep clipping error at the
     noise level (its ``calibrate.py:229-234``). Cached beside the
-    checkpoint."""
+    checkpoint. The schedule snaps to ``precond_kind``'s sigma grid, so a
+    cosine table's cache key differs from a linear one's."""
     from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism
-    from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
+    from free_hunch_tpu_torch.models.precond import PRECONDS
     from free_hunch_tpu_torch.operators import get_operator
     from free_hunch_tpu_torch.samplers.edm import prepare_schedule, required_cov_capacity
 
-    if precond_kind != "linear":
-        raise NotImplementedError(f"preconditioner {precond_kind!r} is not ported yet")
     dev = resolve_device(device)
-    pre = IDDPMLinearPrecond(torch.nn.Identity(), img_resolution=res, img_channels=3)
+    pre = PRECONDS[precond_kind](torch.nn.Identity(), img_resolution=res, img_channels=3)
     xs, s0 = prepare_schedule(
         round_sigma=pre.round_sigma, net_sigma_min=pre.sigma_min,
         net_sigma_max=pre.sigma_max, num_steps=num_steps, solver="heun",

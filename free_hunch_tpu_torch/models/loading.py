@@ -2,7 +2,7 @@
 seeded random init, and the preconditioner wrapper.
 
 Counterpart of ``free_hunch_tpu/models/loading.py`` (``parse_setup_txt``
-:32-53, ``load_model`` :56-132, ``wrap_precond`` :135-150,
+:32-53, ``load_model`` :56-132, ``wrap_precond`` :135-150 with both preconditioners,
 ``randomize_zero_leaves`` :200). The reference ``.pt`` state dict loads into
 the port's UNet as it is (same parameter names).
 """
@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from free_hunch_tpu_torch import resolve_device, use_full_f32
-from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
+from free_hunch_tpu_torch.models.precond import PRECONDS
 from free_hunch_tpu_torch.models.unet import UNetModel, create_model
 
 _BOOL_KEYS = ("class_cond", "learn_sigma", "resblock_updown",
@@ -122,14 +122,14 @@ def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
 
 def wrap_precond(model: UNetModel, model_args: dict, kind: str = "linear",
                  qscales=None):
-    """Wrap in the sigma parameterisation (linear-beta iDDPM).
+    """Wrap in the sigma parameterisation: ``kind`` 'linear' (linear-beta
+    iDDPM) or 'cosine' (cosine iDDPM).
 
     qscales: the per-(site, sigma-stage) activation-scale table of a
     ``quant="int8_static"`` model (``models/calibrate.calibrate_qscales``),
     which such a model needs."""
-    if kind != "linear":
-        raise NotImplementedError(f"preconditioner {kind!r} is not ported yet "
-                                  "(only 'linear')")
+    if kind not in PRECONDS:
+        raise ValueError(f"unknown preconditioner {kind!r} (linear | cosine)")
     if model.cfg.quant == "int8_static" and qscales is None:
         raise ValueError(
             "quant='int8_static' needs a calibration table: pass qscales="
@@ -137,6 +137,5 @@ def wrap_precond(model: UNetModel, model_args: dict, kind: str = "linear",
             "quant='int8' for dynamic activation scales)")
     res = model_args.get("image_size", model.cfg.image_size)
     label_dim = 1000 if model_args.get("class_cond") else 0
-    return IDDPMLinearPrecond(model, img_resolution=res, img_channels=3,
-                              label_dim=label_dim, qscales=qscales
-                              ).to(next(model.parameters()).device)
+    return PRECONDS[kind](model, img_resolution=res, img_channels=3, label_dim=label_dim,
+                          qscales=qscales).to(next(model.parameters()).device)

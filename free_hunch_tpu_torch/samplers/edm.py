@@ -6,6 +6,7 @@ code (outputs equal the JAX package's bit for bit), ``required_cov_capacity``
 likewise (:41-211). ``sample_scan`` (:214-306) becomes ``sample_loop``, a
 Python loop over the steps: each step is Heun or Euler as the host schedule
 says, so the final Euler step is simply the last iteration.
+``conditional_sampler`` (:309-343) is the one-shot entry point.
 """
 from __future__ import annotations
 
@@ -245,3 +246,26 @@ def sample_loop(denoise: Callable, mechanism, noise: torch.Tensor, y: torch.Tens
                     host_syncs=host_syncs)
         return x, traj, diag
     return x, traj
+
+
+def conditional_sampler(denoise: Callable, noise: torch.Tensor, cond_images: torch.Tensor,
+                        operator, mechanism, *, round_sigma: Callable, net_sigma_min: float,
+                        net_sigma_max: float, generator: Optional[torch.Generator] = None,
+                        measurement_generator: Optional[torch.Generator] = None,
+                        alpha: float = 1.0, return_trajectory: bool = False,
+                        **schedule_kwargs):
+    """One-shot entry point: prepare the schedule, take the measurement
+    y = operator.forward(cond_images) with its noise drawn from
+    ``measurement_generator`` (``None``: noiseless), then run
+    ``sample_loop`` with its churn noise from ``generator``. The two
+    generators stand for the JAX package's two folds of one key. Returns
+    (x_final, x_all, y)."""
+    xs, sigma0_scaled = prepare_schedule(
+        round_sigma=round_sigma, net_sigma_min=net_sigma_min,
+        net_sigma_max=net_sigma_max, alpha=alpha, **schedule_kwargs)
+    with torch.no_grad():
+        y = operator.forward(cond_images, generator=measurement_generator)
+    x_final, x_all = sample_loop(denoise, mechanism, noise, y, xs, generator,
+                                 sigma0_scaled=sigma0_scaled, alpha=alpha,
+                                 return_trajectory=return_trajectory)
+    return x_final, x_all, y

@@ -259,3 +259,49 @@ def test_sampler_slice_three_euler_steps_matches_sample_scan(prior_dir):
     for i in range(3):
         np.testing.assert_allclose(ttraj[i], jtraj[i], rtol=0, atol=2e-4 * scale[i],
                                    err_msg=f"step {i}")
+
+
+def test_conditional_sampler_matches_jax(prior_dir):
+    """The one-shot entry point (schedule, measurement, loop) against the
+    JAX package's ``conditional_sampler`` with the same injected noise:
+    3 Euler steps, no churn, and a noiseless operator (sigma_s 0), so the
+    two packages' measurement draws, which cannot agree, add nothing. y
+    is the blur through two FFT libraries, held to 1e-6 of its max |y|
+    (observed 3e-8 on values up to 0.14). The solves run at the clipped
+    sigma_s 0.001, sharper than at 0.1, and the first step's difference
+    (2.8e-4 of max |x| 13.7) is carried through the later steps, whose |x|
+    shrinks to 1.1: every step is held to 1e-4 of the first step's max |x|
+    (observed 2.1e-5)."""
+    jm_net, params, tm_net = tiny_pair()
+    pre_j = JPrecond(jm_net, img_resolution=RES, img_channels=3)
+    pre_t = TPrecond(tm_net, img_resolution=RES, img_channels=3)
+    kw = dict(num_steps=3, solver="euler", discretization="edm", schedule="linear",
+              scaling="none", return_trajectory=True)
+    xs, _ = jedm.prepare_schedule(round_sigma=pre_j.round_sigma, net_sigma_min=pre_j.sigma_min,
+                                  net_sigma_max=pre_j.sigma_max, num_steps=3, solver="euler")
+    jop, top = _operators(sigma_s=0.0)
+    base = dict(cond_scaling=1.0, image_base_covariance="dct_diagonal", data_dir=prior_dir,
+                init_denoiser_variance=1.0, init_noise_variance=80.0**2,
+                data_dim=3 * RES * RES, cov_capacity=jedm.required_cov_capacity(xs),
+                solver_type="customcuda", cg_coords="pixel", cg_warm_start="prev")
+    rng = np.random.default_rng(2)
+    noise = rng.normal(size=SHAPE).astype(F32)
+    cond = rng.uniform(-1, 1, SHAPE).astype(F32)
+    jx, jtraj, jy = jedm.conditional_sampler(
+        lambda x, s: pre_j.apply(params, x, s), jnp.asarray(noise), jnp.asarray(cond), jop,
+        jmech.FreeHunch(forward_operator=jop, **base), rng_key=jax.random.PRNGKey(0),
+        round_sigma=pre_j.round_sigma, net_sigma_min=pre_j.sigma_min,
+        net_sigma_max=pre_j.sigma_max, **kw)
+    tx, ttraj, ty = tedm.conditional_sampler(
+        pre_t, torch.as_tensor(noise), torch.as_tensor(cond), top,
+        tmech.FreeHunch(forward_operator=top, **base), round_sigma=pre_t.round_sigma,
+        net_sigma_min=pre_t.sigma_min, net_sigma_max=pre_t.sigma_max,
+        generator=torch.Generator().manual_seed(0), **kw)
+    jy = np.asarray(jy)
+    np.testing.assert_allclose(ty.numpy(), jy, rtol=0, atol=1e-6 * np.abs(jy).max())
+    jtraj = np.asarray(jtraj)
+    assert ttraj.shape == jtraj.shape == (3,) + SHAPE and torch.equal(tx, ttraj[-1])
+    lim = 1e-4 * np.abs(jtraj[0]).max()
+    for i in range(3):
+        np.testing.assert_allclose(ttraj[i].numpy(), jtraj[i], rtol=0, atol=lim,
+                                   err_msg=f"step {i}")
