@@ -8,7 +8,8 @@
     python3 chip_smoke.py --gn                 # K1 and K2 alone: per pass and
                                                # per call, every forward shape
     python3 chip_smoke.py --mechanisms         # phases 3b, 4b-4d alone
-    python3 chip_smoke.py --ddnm               # phases 3c and 4e alone
+    python3 chip_smoke.py --ddnm               # phases 3c and 4e alone, draw routes
+    python3 chip_smoke.py --driver             # phases 5a-5c alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -18,7 +19,8 @@ Phases, in order; any failure raises and exits non-zero:
 2. kernels: every hand-written kernel against its plain PyTorch version on
    the card, at every distinct shape a main path gives it, with times, the
    bound and the library call of the same function (timed only, never
-   used): K1 (GroupNorm+SiLU) at one bf16 forward's shapes, K2 (GroupNorm+
+   used): K1 (GroupNorm+SiLU) at one bf16 forward's shapes (and, checked
+   but not timed, at those of the driver's last batch of 2), K2 (GroupNorm+
    affine+SiLU+int8 quantise) at one fused-int8 forward's shapes and K3
    (int8 convolution) at every shape of a fused-int8 guided call: the
    forward, the remat recomputes and the int8 pullbacks, summed per forward
@@ -68,6 +70,23 @@ Phases, in order; any failure raises and exits non-zero:
    to the hooks' GroupNorm32 count; each operator's count joins K1's
    entry of the ``kernels`` line as ``launches_ddnm_<operator>``. The
    gaussian blur's run once more under the profiler.
+5a. driver reference: the port's ``Evaluator`` at 32 px (f32 tiny UNet,
+   Free Hunch with the flat prior on the gaussian blur, centre crops of
+   three bundled PNGs, batch 2, 3 Heun steps) on the card against the same
+   run on the CPU, which draws the same random numbers: each journal
+   record's and the totals' PSNR, SSIM and LPIPS, the final samples and
+   the CG counts within 3b's limits, and native LPIPS (seeded VGG npz) and
+   the proxy Inception's features within 1e-4.
+5b. the driver at full width: ``generate_conditional.cmdline`` on the ten
+   bundled 256 px images (seeded random weights, bf16 torso with remat),
+   Free Hunch with the DCT-diagonal prior on the 61x61 gaussian blur, 30
+   Heun steps, batch 8, FID against proxy statistics of the same images:
+   the artifacts checked, wall per batch, images per minute, the share of
+   wall outside ``sample_loop``, peak memory, K1 launches against the
+   hooks (``launches_driver`` in K1's entry).
+5c. the same entry with ``--conditioning_mechanism=ddnm`` on inpainting
+   with a fresh mask per image, the steps doubled to 60
+   (``launches_driver_ddnm``).
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -90,7 +109,14 @@ import torch
 import torch.nn.functional as F
 
 import free_hunch_tpu_torch as fht
+from free_hunch_tpu_torch import config as fht_config
+from free_hunch_tpu_torch import eval as teval
+from free_hunch_tpu_torch import eval_ddnm as teval_ddnm
+from free_hunch_tpu_torch.data import png
+from free_hunch_tpu_torch.generate_conditional import cmdline
 from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism, solvers
+from free_hunch_tpu_torch.metrics import fid as fid_mod
+from free_hunch_tpu_torch.metrics import lpips as lpips_mod
 from free_hunch_tpu_torch.models import loading
 from free_hunch_tpu_torch.models.calibrate import calibrate_qscales
 from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond
@@ -287,11 +313,12 @@ def gn_shapes_of_forward(model, batch: int, res: int, dev) -> Counter:
     return seen
 
 
-def check_gn(shape, dtype, silu, gen, reps=20, backward=True):
-    """Kernel vs plain on one shape; returns the measurements: eager ms
-    (calls back to back), the card's ms alone (a CUDA graph's replay), each
-    pass's device ms, the plain version's and the library call's ms and,
-    with ``backward``, the plain-autograd backward's."""
+def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True):
+    """Kernel vs plain on one shape; returns the error and, with
+    ``measure``, the measurements: eager ms (calls back to back), the card's
+    ms alone (a CUDA graph's replay), each pass's device ms, the plain
+    version's and the library call's ms and, with ``backward``, the
+    plain-autograd backward's."""
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
@@ -313,6 +340,9 @@ def check_gn(shape, dtype, silu, gen, reps=20, backward=True):
         if not err <= limit:
             raise AssertionError(f"groupnorm kernel {shape} {dtype}: max abs err "
                                  f"{err} > {limit}")
+    if not measure:
+        return dict(shape=shape, dtype=str(dtype).replace("torch.", ""), silu=silu,
+                    max_abs_err=err, tol=tol)
     xp = x.permute(0, 3, 1, 2)
     gl, bl = g.to(dtype), b.to(dtype)
     if silu:
@@ -369,7 +399,11 @@ def sum_entry(entry: dict, rows, keys) -> dict:
     return out
 
 
-def gn_kernel_phase(forward_shapes: Counter) -> dict:
+def gn_kernel_phase(forward_shapes: Counter, last_batch_shapes: Counter) -> dict:
+    """K1 against its plain version at the named shapes and every shape of
+    one main-path forward (timed), and at every shape of the driver's last,
+    smaller batch (ten images at batch 8 end with 2), whose plan has more
+    and shorter chunks per sample (checked, not timed)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     say("groupnorm_silu kernel (K1) vs plain (times in ms per call):")
     named = [("in_norm", (2, 256, 256, 256), torch.bfloat16, True),
@@ -394,6 +428,16 @@ def gn_kernel_phase(forward_shapes: Counter) -> dict:
             f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} backward "
             f"{r['bwd_ms']:.4f}")
     e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms", "bwd_ms"))
+    n_last = {s[0] for s, _, _ in last_batch_shapes}
+    say(f"  the driver's last batch of {sorted(n_last)}, per distinct shape (calls):")
+    last_err = 0.0
+    for (shape, dtype, silu), calls in sorted(last_batch_shapes.items(),
+                                              key=lambda kv: -np.prod(kv[0][0])):
+        r = check_gn(shape, dtype, silu, gen, measure=False)
+        last_err = max(last_err, r["max_abs_err"])
+        say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
+            f"{r['max_abs_err']:.3g} ({r['tol']})")
+    e[f"max_abs_err_batch_{'_'.join(map(str, sorted(n_last)))}"] = last_err
     say(f"  sum over the {sum(forward_shapes.values())} calls of one forward: kernel "
         f"{e['ms']:.3f} ms (graph {e['graph_ms']:.3f} ms; passes "
         f"{fmt_passes(e['passes_ms'])}; {e['tbps']:.2f} TB/s on the function's bytes), "
@@ -403,7 +447,8 @@ def gn_kernel_phase(forward_shapes: Counter) -> dict:
         f"their backward in the guidance vjp (plain autograd) {e['bwd_ms']:.3f} ms")
     return {k: e[k] for k in list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "graph_ms",
-                                               "passes_ms", "tbps"]}
+                                               "passes_ms", "tbps"]
+            + [k for k in e if k.startswith("max_abs_err_batch_")]}
 
 
 def int8_shapes_of_forward(model, batch: int, res: int, dev):
@@ -1880,6 +1925,384 @@ def ddnm_phase(model, model_args, batch: int, steps: int, seed: int) -> dict:
     return out
 
 
+def ddnm_draws_phase(model, model_args, steps: int, seed: int) -> None:
+    """``--ddnm`` only: what the sampler's per-step draw costs DDNM+ on
+    inpainting at the driver's two batches, 8 and 2. The draw comes from a
+    generator on the card, from a CPU generator through pinned memory
+    (``free_hunch_tpu_torch.randn``, the driver's route, which gives the
+    card the CPU's draws) or from a CPU generator through pageable memory,
+    whose copy waits for the card's queue at every step. Three rounds, the
+    order reversed every other round; host clock ending in a synchronise."""
+    dev = next(model.parameters()).device
+    res = model_args["image_size"]
+    drawn = ddnm.randn
+
+    def pageable(shape, generator=None, dtype=torch.float32, device=None):
+        return torch.randn(tuple(shape), generator=generator, dtype=dtype).to(device)
+
+    routes = {"card generator": (drawn, "cuda"), "CPU pinned": (drawn, "cpu"),
+              "CPU pageable": (pageable, "cpu")}
+    say(f"DDNM+ per-step draw routes: inpainting, {steps} steps, sigma_y 0.1, eta 1.0; "
+        f"wall s per run, three rounds:")
+    for batch in (8, 2):
+        a_funcs = ddnm_operator("inpainting", res, dev, seed, rows=batch)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        truth = torch.rand((batch, 3 * res * res), generator=gen, device=dev) * 2 - 1
+        with torch.no_grad():
+            y = a_funcs.A(truth)
+        y = y + 0.1 * torch.randn(y.shape, generator=gen, device=dev)
+        noise = torch.randn((batch, 3, res, res), generator=gen, device=dev)
+        walls = {name: [] for name in routes}
+        for rnd in range(3):
+            for name in (list(routes) if rnd % 2 == 0 else list(routes)[::-1]):
+                draw, where = routes[name]
+                ddnm.randn = draw
+                try:
+                    g = torch.Generator(device=where).manual_seed(seed)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ddnm.ddnm_sample(lambda x, t: model(x, t)[:, :3], a_funcs, noise, y,
+                                     num_steps=steps, sigma_y=0.1, eta=1.0, generator=g)
+                    torch.cuda.synchronize()
+                    walls[name].append(time.perf_counter() - t0)
+                finally:
+                    ddnm.randn = drawn
+        say(f"  batch {batch}: " + "; ".join(
+            f"{name} {[round(w, 3) for w in ws]} (median {float(np.median(ws)):.3f})"
+            for name, ws in walls.items()))
+        del a_funcs, y, noise
+        torch.cuda.empty_cache()
+
+
+# -- phase 5: the evaluation driver ------------------------------------------
+
+DRIVER_RES, DRIVER_IMAGES, DRIVER_BATCH, DRIVER_STEPS = 32, 3, 2, 3
+# phases 5b and 5c: the ten bundled images at batch 8, so a batch of 8, then 2
+FULL_IMAGES, FULL_BATCH = 10, 8
+# 5a's limits, card against CPU: each journal record's and total's PSNR,
+# SSIM and LPIPS within 3b's per-call relative limit (1e-3 of the CPU's
+# value, at least of 1), the final float samples within 3b's last-call
+# limit, and the metric networks' outputs (native LPIPS distances and the
+# VGG features each distance reads, pool3 features) within 1e-4 of the
+# CPU's largest |value|: TF32 convolutions (~1e-3 relative per value) break
+# the features' limits, though a distance averages such noise away
+DRIVER_METRIC_REL, DRIVER_SAMPLE_ABS, DRIVER_NET_REL = MECH_REF_CALL_REL, MECH_REF_LAST_ABS, 1e-4
+LPIPS_VGG = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
+             (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512),
+             (21, 512, 512), (24, 512, 512), (26, 512, 512), (28, 512, 512))
+
+
+def lpips_npz(path: Path, seed: int) -> str:
+    """A seeded VGG16 features + LPIPS heads npz in the format of
+    ``metrics/lpips.py::convert_torch_weights`` (no real weights are in the
+    repository)."""
+    rng = np.random.default_rng(seed)
+    vgg = {}
+    for idx, cin, cout in LPIPS_VGG:
+        vgg[f"{idx}.weight"] = rng.normal(0, np.sqrt(2.0 / (cin * 9)),
+                                          (cout, cin, 3, 3)).astype(np.float32)
+        vgg[f"{idx}.bias"] = rng.normal(0, 0.01, cout).astype(np.float32)
+    lins = {f"lin{i}": rng.uniform(0, 1, c).astype(np.float32)
+            for i, c in enumerate(lpips_mod.TAP_CHANNELS)}
+    np.savez(path, **lpips_mod.convert_torch_weights(vgg, lins))
+    return str(path)
+
+
+class DriverReference:
+    """Phase 5a's witness: the port's ``Evaluator`` at 32 px (the f32 tiny
+    UNet with seeded weights) on centre crops of three bundled PNGs, Free
+    Hunch with the flat prior on the gaussian blur, batch 2 (a ragged last
+    batch), 3 Heun steps. The driver draws every random number on the CPU,
+    so the card and the CPU get the same noise and measurement draws. Also
+    the metric networks alone: native LPIPS from a seeded VGG npz at 64 px,
+    and pool3 features of the proxy Inception (``random_params(0)``) on two
+    images."""
+
+    def __init__(self, seed: int, tmp: Path):
+        self.tmp = tmp
+        self.data = tmp / "images32"
+        self.data.mkdir(parents=True, exist_ok=True)
+        o = (256 - DRIVER_RES) // 2
+        for p in sorted((ROOT / "data" / "imagenet" / "00000").glob("*.png"))[:DRIVER_IMAGES]:
+            png.write_png(str(self.data / p.name),
+                          np.ascontiguousarray(png.read_png(str(p))[o:o + DRIVER_RES,
+                                                                    o:o + DRIVER_RES]))
+        self.setup = tmp / "setup32.txt"
+        self.setup.write_text(
+            f"--image_size {DRIVER_RES} --num_channels 32 --num_res_blocks 1 "
+            f"--channel_mult 1,2 --attention_resolutions 8 --num_head_channels 16 "
+            f"--learn_sigma True --class_cond False --resblock_updown True "
+            f"--use_scale_shift_norm True")
+        self.state = loading.random_init_(create_model(
+            **{**TINY, "dtype": torch.float32}), seed=seed).state_dict()
+        self.lpips_path = lpips_npz(tmp / "lpips_vgg.npz", seed)
+        rng = np.random.default_rng(seed + 5)
+        a = rng.uniform(-1, 1, (2, 3, 64, 64)).astype(np.float32)
+        self.lpips_pair = (a, np.clip(a + rng.normal(0, 0.2, a.shape), -1, 1).astype(np.float32))
+        self.fid_images = rng.uniform(-1, 1, (2, 3, DRIVER_RES, DRIVER_RES)).astype(np.float32)
+
+    def run(self, dev: str, name: str, nudge: float = 0.0) -> dict:
+        """One side: the Evaluator's journal records, totals, final float
+        samples per batch and CG counts per guided call, K1's launches, and
+        the metric networks' outputs. ``nudge`` multiplies every denoiser
+        output by (1 + nudge N(0, 1)), a stand-in for another device's
+        rounding."""
+        outdir = self.tmp / name
+        opts = fht_config.load_config(args=dict(
+            outdir=str(outdir), openai_setup_path=str(self.setup),
+            openai_state_dict_path=str(self.tmp / "absent.pt"), allow_random_init=True,
+            dataset_path=str(self.data), total_images=DRIVER_IMAGES,
+            batch_size=DRIVER_BATCH, num_steps=DRIVER_STEPS, seeds=[0],
+            conditioning_mechanism="online_covariance",
+            image_base_covariance="dct_diagonal_noinfo", operator_name="gaussian_blur",
+            intensity=3.0, noise_sigma=0.1, dtype="float32", mesh_shape="data:1",
+            num_other_images_to_save=10))
+        ev = teval.Evaluator(opts, device=dev)
+        ev.model.load_state_dict(self.state)
+        samples, recs = [], []
+        build, batch_fn, precond = ev._mech_builder, ev._batch_fn, ev.precond
+        rng = np.random.default_rng(1)
+
+        def recorded(op):
+            recs.append(CallRecorder(build(op)))
+            return recs[-1]
+
+        def denoise(x, sigma, y=None):
+            x0, var = precond(x, sigma, y=y)
+            n = torch.as_tensor(rng.normal(size=tuple(x0.shape)), dtype=x0.dtype,
+                                device=x0.device)
+            return x0 * (1 + nudge * n), var
+
+        def batch(*a, **k):
+            out = batch_fn(*a, **k)
+            samples.append(out[0].cpu().numpy())
+            return out
+
+        ev._mech_builder, ev._batch_fn = recorded, batch
+        if nudge:
+            ev.precond = denoise
+        before = gn.launches
+        sync(dev)
+        t0 = time.perf_counter()
+        totals = ev.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = gn.launches - before
+        with open(outdir / "metrics_rank00.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        lp = lpips_mod.make_lpips(self.lpips_path, device=dev)
+        extract, _ = fid_mod.make_extractor(None, device=dev)
+        a, b = (torch.as_tensor(v, device=dev) for v in self.lpips_pair)
+        with torch.no_grad():
+            dist = lp(a, b)
+            taps = lp._vgg_taps((a - lp.shift) / lp.scale)
+        feats = extract(torch.as_tensor(self.fid_images, device=dev))
+        return dict(records=records, totals=totals, samples=samples,
+                    niter=[[c["niter"] for c in r.calls] for r in recs], launches=launches,
+                    wall_s=wall, lpips=dist.cpu().numpy(), features=feats.cpu().numpy(),
+                    **{f"lpips_tap{i}": t.cpu().numpy() for i, t in enumerate(taps)},
+                    files=sorted(str(p.relative_to(outdir)) for p in outdir.rglob("*")
+                                 if p.is_file()))
+
+
+def driver_reference_failures(cpu: dict, card: dict) -> tuple:
+    """(readings as error / limit, what breaks the limits) of phase 5a,
+    card against CPU."""
+    ratio, bad = {}, []
+
+    def hold(key, err, lim):
+        ratio[key] = float(err / lim)
+        if not err <= lim:
+            bad.append(f"{key}: {float(err):.3g} > {float(lim):.3g}")
+
+    if [r["batch"] for r in card["records"]] != [r["batch"] for r in cpu["records"]] or \
+            [r["n"] for r in card["records"]] != [r["n"] for r in cpu["records"]]:
+        bad.append("journal batches differ")
+    rows = list(zip(cpu["records"], card["records"])) + [(cpu["totals"], card["totals"])]
+    for i, (c, g) in enumerate(rows):
+        where = "totals" if i == len(rows) - 1 else f"batch {i}"
+        for k in ("psnr", "ssim", "lpips"):
+            hold(f"{where} {k}", abs(g[k] - c[k]), DRIVER_METRIC_REL * max(abs(c[k]), 1.0))
+    if len(card["samples"]) != len(cpu["samples"]):
+        bad.append("batch counts differ")
+    for i, (c, g) in enumerate(zip(cpu["samples"], card["samples"])):
+        if g.shape != c.shape or not np.isfinite(g).all():
+            bad.append(f"batch {i} samples {g.shape} not finite or not {c.shape}")
+        else:
+            hold(f"batch {i} samples", np.abs(g - c).max(), DRIVER_SAMPLE_ABS)
+    if card["niter"] != cpu["niter"]:
+        bad.append(f"CG niter card {card['niter']} cpu {cpu['niter']}")
+    for k in ["lpips", "features"] + [k for k in cpu if k.startswith("lpips_tap")]:
+        hold(k, np.abs(card[k] - cpu[k]).max(), DRIVER_NET_REL * np.abs(cpu[k]).max())
+    if card["files"] != cpu["files"]:
+        bad.append("artifact layouts differ")
+    return ratio, bad
+
+
+def driver_reference_phase(seed: int, card: str = "cuda"):
+    """Phase 5a: the witness on the card against the CPU; anything outside
+    the limits, or no K1 launch on the card, raises."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = DriverReference(seed, Path(tmp))
+        cpu = ref.run("cpu", "cpu")
+        gpu = ref.run(card, "card")
+    ratio, bad = driver_reference_failures(cpu, gpu)
+    if cpu["launches"] != 0 or gpu["launches"] == 0:
+        bad.append(f"K1 launches cpu {cpu['launches']} card {gpu['launches']}")
+    say(f"driver reference 32 px (Evaluator, Free Hunch, gaussian blur, {DRIVER_IMAGES} "
+        f"images, batch {DRIVER_BATCH}, {DRIVER_STEPS} Heun steps), card vs CPU: "
+        f"error / limit {json.dumps({k: round(v, 5) for k, v in ratio.items()})}; CG niter "
+        f"{gpu['niter']}; card K1 launches {gpu['launches']}; wall card "
+        f"{gpu['wall_s']:.2f} s, CPU {cpu['wall_s']:.2f} s; totals card "
+        f"{ {k: gpu['totals'][k] for k in ('psnr', 'ssim', 'lpips')} }"
+        + (f"; FAILS: {bad}" if bad else ""))
+    if bad:
+        raise AssertionError(f"driver reference: card and CPU disagree: {bad}")
+
+
+def hooked_driver(run):
+    """Run ``run()`` (a ``generate_conditional.cmdline`` call) with the
+    GroupNorm32 calls of the model the driver loads counted by hooks and
+    the time inside ``sample_loop`` / ``ddnm_sample`` read on the host
+    clock, the card synchronised. Returns (result, K1 launches, hooks'
+    count, [(sampler seconds, batch)], wall s, peak GiB)."""
+    calls = Counter()
+    samplings = []
+    load, loop, ddnm_loop = teval.load_model, teval.sample_loop, teval_ddnm.ddnm_sample
+
+    def count(mod, args):
+        calls["gn"] += 1
+
+    def hooked_load(*a, **k):
+        model, args = load(*a, **k)
+        for m in model.modules():
+            if isinstance(m, GroupNorm32):
+                m.register_forward_pre_hook(count)
+        return model, args
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            samplings.append((time.perf_counter() - t0, int(a[2].shape[0])))
+            return out
+        return wrapper
+
+    teval.load_model, teval.sample_loop = hooked_load, timed(loop)
+    teval_ddnm.ddnm_sample = timed(ddnm_loop)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gn.launches
+    finally:
+        teval.load_model, teval.sample_loop = load, loop
+        teval_ddnm.ddnm_sample = ddnm_loop
+    return (result, launches, calls["gn"], samplings, wall,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def check_artifacts(outdir: Path, label: str, n: int, batches: int, fid: bool):
+    results = json.loads((outdir / "results.json").read_text())
+    for sub in ("images", "cond_images", "forward_images"):
+        got = sorted(p.name for p in (outdir / sub).glob("*.png"))
+        if got != [f"{i:06d}_000000.png" for i in range(n)]:
+            raise AssertionError(f"{label}: {sub}/ holds {got}")
+    shape = png.read_png(str(outdir / "images" / "000000_000000.png")).shape
+    keys = ("psnr", "ssim", "lpips") + (("fid",) if fid else ())
+    journal = (outdir / "metrics_rank00.jsonl").read_text().splitlines()
+    text = (outdir / "results.txt").read_text()
+    bad = [k for k in keys if not np.isfinite(results.get(k, np.nan))]
+    if bad or results["images"] != n or len(journal) != batches or \
+            results["lpips_is_proxy"] is not True or (fid and results["fid_is_proxy"] is not True) \
+            or not all(f"{k.upper()}: " in text for k in keys) \
+            or not (outdir / "config.json").exists() or \
+            "PSNR:" not in (outdir / "output.log").read_text():
+        raise AssertionError(f"{label}: artifacts wrong: results {results}, journal "
+                             f"{len(journal)} records, non-finite {bad}")
+    return results, shape
+
+
+def driver_phase(seed: int, steps: int, smi: str, dev: str = "cuda") -> dict:
+    """Phases 5b and 5c: the port's ``generate_conditional`` entry at full
+    width on the ten bundled images (``data/imagenet``, whose
+    ``dct_variance.pt`` is the prior), seeded random weights: Free Hunch on
+    the 61x61 gaussian blur with FID against proxy statistics of the same
+    images, then DDNM+ on inpainting with a fresh mask per image. Returns
+    K1's launches of each run."""
+    out = {}
+    data = ROOT / "data" / "imagenet"
+    common = [f"--openai_setup_path={SETUP_256}", f"--openai_state_dict_path={CKPT_256}",
+              "--allow_random_init=true", f"--dataset_path={data}", f"--total_images={FULL_IMAGES}",
+              f"--batch_size={FULL_BATCH}", "--seeds=0", "--dtype=bfloat16", "--remat=true",
+              "--noise_sigma=0.1", "--num_other_images_to_save=10", "--mesh_shape=data:1",
+              f"--seed={seed}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        extract, is_proxy = fid_mod.make_extractor(None, device=dev)
+        stats = fid_mod.FeatureStats()
+        from free_hunch_tpu_torch.data.dataset import ImageFolderDataset
+        ds = ImageFolderDataset(str(data))
+        stats.add(extract(torch.as_tensor(np.stack([ds[i][0] for i in range(len(ds))]),
+                                          device=dev).float() / 127.5 - 1))
+        stats.save(str(tmp / "ref_stats.npz"), is_proxy=is_proxy)
+        say(f"driver: proxy FID statistics of the {len(ds)} bundled images in "
+            f"{time.perf_counter() - t0:.2f} s")
+        fh_dir = tmp / "free_hunch"
+        argv = common + [f"--outdir={fh_dir}", "--conditioning_mechanism=online_covariance",
+                         "--image_base_covariance=dct_diagonal", "--operator_name=gaussian_blur",
+                         "--kernel_size=61", "--intensity=3.0", f"--num_steps={steps}",
+                         "--cov_capacity=auto", f"--fid_ref_stats={tmp / 'ref_stats.npz'}"]
+        res, launches, hooks, samp, wall, peak = hooked_driver(lambda: cmdline(argv, dev))
+        results, shape = check_artifacts(fh_dir, "driver Free Hunch", 10, 2, fid=True)
+        sampling = sum(s for s, _ in samp)
+        run_wall = results["time_taken"]
+        say(f"driver 5b, generate_conditional Free Hunch (online_covariance, dct_diagonal "
+            f"prior, gaussian blur 61x61, sigma_s 0.1, {steps} Heun steps) on the 10 "
+            f"bundled {shape[0]} px images, batch 8 (batches of 8 and 2), bf16 torso with "
+            f"remat, on {smi}:")
+        say(f"  results: PSNR {results['psnr']:.4f}, SSIM {results['ssim']:.4f}, LPIPS "
+            f"{results['lpips']:.4f} (proxy), FID {results['fid']:.4f} (proxy), images "
+            f"{results['images']}")
+        say(f"  wall: whole entry {wall:.3f} s; evaluation loop {run_wall:.3f} s; per batch "
+            f"(sampler s, images) {[(round(s, 3), b) for s, b in samp]}; "
+            f"{10 / run_wall * 60:.3f} images per minute of the loop, "
+            f"{10 / wall * 60:.3f} of the whole entry; share outside sample_loop "
+            f"{1 - sampling / run_wall:.4f} of the loop, {1 - sampling / wall:.4f} of the "
+            f"entry (model load, IO, decode, metrics, FID)")
+        say(f"  peak device memory {peak:.3f} GiB; K1 launches {launches} (hooks: {hooks} "
+            f"GroupNorm32 calls)")
+        if not 0 < launches == hooks:
+            raise AssertionError(f"driver Free Hunch: {launches} K1 launches, hooks {hooks}")
+        out["driver"] = launches
+
+        dd_dir = tmp / "ddnm"
+        argv = common + [f"--outdir={dd_dir}", "--conditioning_mechanism=ddnm",
+                         "--operator_name=inpainting", f"--num_steps={steps}"]
+        res, launches, hooks, samp, wall, peak = hooked_driver(lambda: cmdline(argv, dev))
+        results, _ = check_artifacts(dd_dir, "driver DDNM+", 10, 2, fid=False)
+        config = json.loads((dd_dir / "config.json").read_text())
+        say(f"driver 5c, generate_conditional DDNM+ on inpainting (fresh mask per image, "
+            f"sigma_y 0.1), --num_steps={steps} doubled to {config['num_steps']}, batch 8, "
+            f"on {smi}: wall {wall:.3f} s whole entry, {results['time_taken']:.3f} s loop, "
+            f"sampler per batch {[(round(s, 3), b) for s, b in samp]}; PSNR "
+            f"{results['psnr']:.4f}, SSIM {results['ssim']:.4f}, LPIPS {results['lpips']:.4f}"
+            f" (proxy); peak device memory {peak:.3f} GiB; K1 launches {launches} (hooks: "
+            f"{hooks})")
+        if config["num_steps"] != 2 * steps or not 0 < launches == hooks:
+            raise AssertionError(f"driver DDNM+: {config['num_steps']} steps, {launches} K1 "
+                                 f"launches, hooks {hooks}")
+        out["driver_ddnm"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -1896,8 +2319,11 @@ def main(argv=None) -> int:
                     "SR and inpainting slices, the sweep and the CG-coordinates reading alone; "
                     "no result lines")
     ap.add_argument("--ddnm", action="store_true", help="phases 3c and 4e alone: the DDNM+ "
-                    "and Free Hunch variant reference and the 256 px DDNM+ slices; no result "
-                    "lines")
+                    "and Free Hunch variant reference and the 256 px DDNM+ slices, then the "
+                    "cost of the sampler's per-step draw by route; no result lines")
+    ap.add_argument("--driver", action="store_true", help="phases 5a-5c alone: the 32 px "
+                    "driver reference and generate_conditional at full width (Free Hunch, "
+                    "then DDNM+ with 2 * --steps steps) on the bundled images; no result lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -1920,6 +2346,11 @@ def main(argv=None) -> int:
         gn_phase(args.batch, args.seed)
         say(f"chip_smoke --gn wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args.driver:
+        driver_reference_phase(args.seed)
+        driver_phase(args.seed, args.steps, smi)
+        say(f"chip_smoke --driver wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     t0 = time.perf_counter()
     model, model_args = loading.load_model(
         str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16,
@@ -1935,10 +2366,13 @@ def main(argv=None) -> int:
     if args.ddnm:
         ddnm_reference_phase(args.seed)
         ddnm_phase(model, model_args, args.batch, 2 * args.steps, args.seed)
+        ddnm_draws_phase(model, model_args, 2 * args.steps, args.seed)
         say(f"chip_smoke --ddnm wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     res = model_args["image_size"]
-    gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"))
+    gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"),
+                               gn_shapes_of_forward(model, FULL_IMAGES % FULL_BATCH, res,
+                                                    "cuda"))
     reference_phase(args.seed)
     mechanism_reference_phase(args.seed)
     ddnm_reference_phase(args.seed)
@@ -1970,6 +2404,11 @@ def main(argv=None) -> int:
         f"on {smi}")
     k2_entry["launches"] = qlaunches["gn_silu_quant"]
     k3_entry["launches"] = qlaunches["int8_conv"]
+    del qmodel
+    torch.cuda.empty_cache()
+    driver_reference_phase(args.seed)
+    for run_name, n in driver_phase(args.seed, args.steps, smi).items():
+        gn_entry[f"launches_{run_name}"] = n
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
@@ -1977,6 +2416,8 @@ def main(argv=None) -> int:
                     ("groupnorm_silu", gn_entry["launches_inpainting"]),
                     *(("groupnorm_silu", gn_entry[f"launches_ddnm_{o}"]) for o in DDNM_OPS),
                     ("groupnorm_silu", qlaunches["groupnorm_silu"]),
+                    ("groupnorm_silu", gn_entry["launches_driver"]),
+                    ("groupnorm_silu", gn_entry["launches_driver_ddnm"]),
                     ("gn_silu_quant", k2_entry["launches"]),
                     ("int8_conv", k3_entry["launches"])):
         if n <= 0:

@@ -44,3 +44,18 @@ def check_full_f32(t: torch.Tensor) -> None:
             torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32):
         raise RuntimeError("the port needs full-f32 matmuls and convolutions: "
                            "call free_hunch_tpu_torch.use_full_f32() first")
+
+
+def randn(shape, generator=None, dtype=torch.float32, device=None) -> torch.Tensor:
+    """A standard-normal draw from ``generator`` (default: torch's global
+    generator of ``device``), made on the generator's device and moved to
+    ``device``: a CPU generator gives a run on the card the same draws as
+    a run on the CPU. A CPU draw bound for the card is made in pinned
+    memory and copied without blocking, so the host does not wait for the
+    card's queued work at every draw."""
+    where = torch.device(generator.device if generator is not None else device or "cpu")
+    dest = torch.device(device) if device is not None else where
+    if where.type == "cpu" and dest.type == "cuda":
+        z = torch.randn(tuple(shape), generator=generator, dtype=dtype, pin_memory=True)
+        return z.to(dest, non_blocking=True)
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype, device=where).to(dest)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from free_hunch_tpu_torch import resolve_device
+from free_hunch_tpu_torch import randn, resolve_device
 from free_hunch_tpu_torch.operators import assets, masks
 from free_hunch_tpu_torch.operators.resize import build_resizer
 from free_hunch_tpu_torch.ops.fftops import downsample, fft2c, fft_conv, p2o_np, upsample
@@ -53,7 +53,7 @@ class LinearOperator:
     def _noise(self, y, noiseless, generator):
         if noiseless or generator is None:
             return y
-        n = torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+        n = randn(y.shape, generator, dtype=y.dtype, device=y.device)
         return y + self.sigma_s * n
 
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from free_hunch_tpu_torch import randn
+
 _NOISE = {}
 
 
@@ -49,7 +51,7 @@ class GaussianNoise(Noise):
     def forward(self, data, generator=None):
         if generator is None:
             raise ValueError("gaussian noise needs a torch.Generator")
-        n = torch.randn(data.shape, generator=generator, dtype=data.dtype, device=data.device)
+        n = randn(data.shape, generator, dtype=data.dtype, device=data.device)
         return data + self.sigma * n
 
 

@@ -238,6 +238,21 @@ class Inpainting(AFunctions):
         self._inv_perm = _t(inv, self.device, torch.int64)
         self._singulars = _t(svals, self.device)
 
+    @classmethod
+    def from_masks(cls, masks, repeats=1, shared=False, device=None):
+        """From (K, C, H, W) masks (0 = missing): a per-row operator whose
+        rows repeat each mask ``repeats`` times (seed replicas of an image
+        share its mask), or with ``shared`` one mask (K = 1) for the whole
+        batch. Missing indices are the mask's zeros in its (C, H, W)
+        flattening, as in the JAX package."""
+        masks = torch.as_tensor(masks).cpu()
+        _, c, h, _ = masks.shape
+        missing = [np.where(m.reshape(-1).numpy() == 0)[0] for m in masks]
+        if shared:
+            (one,) = missing
+            return cls(c, h, one, device=device)
+        return cls(c, h, [m for m in missing for _ in range(repeats)], device=device)
+
     @staticmethod
     def _gather(vec, idx):
         if idx.dim() == 1:
@@ -297,17 +312,11 @@ def create_inpainting_operator(channels, img_dim, mask_opt, generator=None, repe
     (C, H, W) flattening, as in the JAX package."""
     opt = dict(mask_opt)
     opt.setdefault("image_size", img_dim)
-
-    def missing_of(gen):
-        m = mask_mod.generate_mask(gen, opt, channels)[0]
-        return np.where(m.reshape(-1).numpy() == 0)[0]
-
     if isinstance(generator, (list, tuple)):
-        missing = []
-        for g in generator:
-            missing += [missing_of(g)] * repeats
-        return Inpainting(channels, img_dim, missing, device=device)
-    return Inpainting(channels, img_dim, missing_of(generator), device=device)
+        masks = torch.cat([mask_mod.generate_mask(g, opt, channels) for g in generator])
+        return Inpainting.from_masks(masks, repeats, device=device)
+    return Inpainting.from_masks(mask_mod.generate_mask(generator, opt, channels),
+                                 shared=True, device=device)
 
 
 # ---------------------------------------------------------------------------

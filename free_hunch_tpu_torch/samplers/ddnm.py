@@ -21,7 +21,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from free_hunch_tpu_torch import use_full_f32
+from free_hunch_tpu_torch import randn, use_full_f32
 from free_hunch_tpu_torch.operators import assets
 from free_hunch_tpu_torch.operators import svd as svd_ops
 
@@ -165,7 +165,7 @@ def ddnm_sample(eps_fn: Callable, a_funcs, noise: torch.Tensor, y: torch.Tensor,
     with torch.no_grad():
         for i, step in enumerate(steps):
             eps = (noise_seq[i] if noise_seq is not None else
-                   torch.randn(xt.shape, generator=generator, dtype=xt.dtype, device=dev))
+                   randn(xt.shape, generator, dtype=xt.dtype, device=dev))
             xt, x0_pred = ddnm_step(eps_fn, a_funcs, y, xt, x0_pred, step, eps,
                                     sigma_y=sigma_y, eta=eta)
             if return_trajectory:
@@ -201,8 +201,7 @@ def ddnm_conditional_sampler(eps_fn: Callable, noise: torch.Tensor, cond_images:
     cond = cond_images.float()
     with torch.no_grad():
         y = a_funcs.A(cond.reshape(b, -1))
-        y = y + sigma_y * torch.randn(y.shape, generator=measurement_generator,
-                                      dtype=y.dtype, device=dev)
+        y = y + sigma_y * randn(y.shape, measurement_generator, dtype=y.dtype, device=dev)
         name = operator_kwargs["name"]
         if name == "inpainting":
             y_for_output = a_funcs.A_with_zeros(cond.reshape(b, -1)).reshape(cond.shape)

@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from free_hunch_tpu_torch import use_full_f32
+from free_hunch_tpu_torch import randn, use_full_f32
 
 
 def _vp_sigma(beta_d, beta_min):
@@ -214,7 +214,7 @@ def sample_loop(denoise: Callable, mechanism, noise: torch.Tensor, y: torch.Tens
         step = {k: float(v[i]) for k, v in xs.items() if k != "use_heun"}
         x_hat = step["scale_ratio"] * x
         if step["churn_std"] != 0.0:
-            eps = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
+            eps = randn(x.shape, generator, dtype=x.dtype, device=dev)
             x_hat = x_hat + step["churn_std"] * eps
         denoised, gstate = mechanism(denoise, x_hat, y, step["sigma_hat"], gstate)
         n1, r1, o1 = gstate.cg_niter, gstate.cg_resnorm, gstate.cg_optfrac

@@ -1,0 +1,53 @@
+"""The card's machine has no PIL, no PyYAML and no OpenCV. In a fresh
+interpreter where importing any of them fails, the port's driver modules
+import, a bundled PNG reads through the dataset at its own 256 px, an
+image saves through the driver's writer and the config loads; only a
+resize, which needs PIL, raises ``ImportError`` and says why."""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import sys
+    for name in ("PIL", "PIL.Image", "yaml", "cv2"):
+        sys.modules[name] = None          # any import of it raises ImportError
+    import numpy as np
+    import free_hunch_tpu_torch.generate_conditional
+    import free_hunch_tpu_torch.eval as ev
+    import free_hunch_tpu_torch.eval_ddnm
+    import free_hunch_tpu_torch.metrics.fid
+    import free_hunch_tpu_torch.metrics.lpips
+    import free_hunch_tpu_torch.metrics.quality
+    from free_hunch_tpu_torch.config import load_config
+    from free_hunch_tpu_torch.data import png
+    from free_hunch_tpu_torch.data.dataset import ImageFolderDataset
+
+    out = sys.argv[1]
+    ds = ImageFolderDataset("data/imagenet/00000", resolution=256, return_idx=True)
+    idx, img, label = ds[3]
+    assert idx == 3 and img.shape == (3, 256, 256) and img.dtype == np.uint8
+    ev._save_images(img[None], out, ["x.png"])
+    assert np.array_equal(png.read_png(out + "/x.png").transpose(2, 0, 1), img)
+    opts = load_config(argv=["--outdir=" + out, "--num_steps=5"])
+    assert opts.num_steps == 5 and opts.operator_name == "gaussian_blur"
+    try:
+        ImageFolderDataset("data/imagenet/00000", resolution=32)[0]
+    except ImportError as e:
+        assert "PIL is needed to resize" in str(e), e
+    else:
+        raise AssertionError("a resize without PIL did not raise")
+    for name in ("PIL", "yaml", "cv2"):
+        assert sys.modules[name] is None
+    print("OK")
+""")
+
+
+def test_the_driver_runs_without_pil_yaml_or_cv2(tmp_path):
+    r = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
