@@ -10,6 +10,8 @@
     python3 chip_smoke.py --mechanisms         # phases 3b, 4b-4d alone
     python3 chip_smoke.py --ddnm               # phases 3c and 4e alone, draw routes
     python3 chip_smoke.py --driver             # phases 5a-5c alone
+    python3 chip_smoke.py --multiprocess       # phases 5d and 5e alone
+    python3 chip_smoke.py --vae                # phase 6 alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -87,6 +89,27 @@ Phases, in order; any failure raises and exits non-zero:
 5c. the same entry with ``--conditioning_mechanism=ddnm`` on inpainting
    with a fresh mask per image, the steps doubled to 60
    (``launches_driver_ddnm``).
+5d. the driver as a world of two ranks on the one card, started as a user
+   starts it (``python -m torch.distributed.run --nproc_per_node=2 -m
+   free_hunch_tpu_torch.generate_conditional``; gloo, since NCCL cannot put
+   two ranks on one device), 5b's protocol with a batch of 5 a rank: the
+   artifacts, 10 images, totals equal to the sample-weighted mean of both
+   journals, FID of both ranks' moments, each rank's K1 launches equal to
+   its hooks (``launches_driver_world2``, both ranks), peak memory and wall
+   per rank.
+5e. kill and resume: DDNM+ on inpainting at batch 2 (three batches a rank)
+   as a world of two, uninterrupted, then with rank 1 armed to SIGKILL
+   itself after one batch, then resumed: replayed records unchanged, every
+   record and the totals within 5a's limits of the uninterrupted run.
+6. the SD-VAE at full width (sd-vae-ft-mse, 83,653,863 seeded random
+   parameters, f32): ``StabilityVAEEncoder`` on the ten bundled images at
+   batch 8, each direction's wall, peak memory, K1's launches against the
+   hooks (``launches_vae``: 52 norms a batch), K1 against its plain version
+   at every distinct norm call (``max_abs_err_vae``) timed against
+   ``group_norm`` + ``silu`` and the bytes bound (``ms_vae``,
+   ``plain_ms_vae``, ``library_ms_vae``, ``bound_ms_vae``), the
+   channels-last interior against NCHW with copies, and the narrow VAE of
+   the CPU tests on the card against the CPU.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -96,7 +119,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -113,6 +138,7 @@ from free_hunch_tpu_torch import config as fht_config
 from free_hunch_tpu_torch import eval as teval
 from free_hunch_tpu_torch import eval_ddnm as teval_ddnm
 from free_hunch_tpu_torch.data import png
+from free_hunch_tpu_torch.data.dataset import shard_indices
 from free_hunch_tpu_torch.generate_conditional import cmdline
 from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism, solvers
 from free_hunch_tpu_torch.metrics import fid as fid_mod
@@ -313,18 +339,19 @@ def gn_shapes_of_forward(model, batch: int, res: int, dev) -> Counter:
     return seen
 
 
-def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True):
-    """Kernel vs plain on one shape; returns the error and, with
-    ``measure``, the measurements: eager ms (calls back to back), the card's
-    ms alone (a CUDA graph's replay), each pass's device ms, the plain
-    version's and the library call's ms and, with ``backward``, the
-    plain-autograd backward's."""
+def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True, groups=32,
+             eps=1e-5):
+    """Kernel vs plain on one shape (``groups`` groups, ``eps``); returns the
+    error and, with ``measure``, the measurements: eager ms (calls back to
+    back), the card's ms alone (a CUDA graph's replay), each pass's device
+    ms, the plain version's and the library call's ms and, with
+    ``backward``, the plain-autograd backward's."""
     c = shape[-1]
     x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
     b = torch.randn(c, generator=gen, device="cuda") * 0.1
-    y = gn.groupnorm_silu_cuda(x, g, b, 32, 1e-5, silu)
-    want = gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu)
+    y = gn.groupnorm_silu_cuda(x, g, b, groups, eps, silu)
+    want = gn.groupnorm_silu_plain(x, g, b, groups, eps, silu)
     torch.cuda.synchronize()
     err = float((y.float() - want.float()).abs().max())
     if dtype == torch.float32:
@@ -346,12 +373,12 @@ def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True):
     xp = x.permute(0, 3, 1, 2)
     gl, bl = g.to(dtype), b.to(dtype)
     if silu:
-        lib = lambda: F.silu(F.group_norm(xp, 32, gl, bl, 1e-5))  # noqa: E731
+        lib = lambda: F.silu(F.group_norm(xp, groups, gl, bl, eps))  # noqa: E731
     else:
-        lib = lambda: F.group_norm(xp, 32, gl, bl, 1e-5)  # noqa: E731
-    k1 = lambda: gn.groupnorm_silu_cuda(x, g, b, 32, 1e-5, silu)  # noqa: E731
+        lib = lambda: F.group_norm(xp, groups, gl, bl, eps)  # noqa: E731
+    k1 = lambda: gn.groupnorm_silu_cuda(x, g, b, groups, eps, silu)  # noqa: E731
     ms, graph_ms, passes = time_ms(k1, reps), time_ms(k1, reps, graph=True), pass_ms(k1)
-    plain_ms = time_ms(lambda: gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu),
+    plain_ms = time_ms(lambda: gn.groupnorm_silu_plain(x, g, b, groups, eps, silu),
                        max(2, reps // 4))
     library_ms = time_ms(lib, reps)
     # the guidance vjp's pullback through this call: the autograd.Function's
@@ -359,7 +386,7 @@ def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True):
     bwd_ms = 0.0
     if backward:
         xg = x.detach().requires_grad_(True)
-        yg = gn.groupnorm_silu(xg, g, b, 32, 1e-5, silu)
+        yg = gn.groupnorm_silu(xg, g, b, groups, eps, silu)
         ct = torch.ones_like(yg)
         bwd_ms = time_ms(lambda: torch.autograd.grad(yg, xg, ct, retain_graph=True),
                          max(2, reps // 4))
@@ -399,11 +426,12 @@ def sum_entry(entry: dict, rows, keys) -> dict:
     return out
 
 
-def gn_kernel_phase(forward_shapes: Counter, last_batch_shapes: Counter) -> dict:
+def gn_kernel_phase(forward_shapes: Counter, small_batches: dict) -> dict:
     """K1 against its plain version at the named shapes and every shape of
-    one main-path forward (timed), and at every shape of the driver's last,
-    smaller batch (ten images at batch 8 end with 2), whose plan has more
-    and shorter chunks per sample (checked, not timed)."""
+    one main-path forward (timed), and at every shape of each smaller batch
+    the driver's runs give it (``small_batches``: batch -> shapes; see
+    ``driver_batch_sizes``), whose plans have more and shorter chunks per
+    sample (checked, not timed; ``max_abs_err_batch_<n>``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     say("groupnorm_silu kernel (K1) vs plain (times in ms per call):")
     named = [("in_norm", (2, 256, 256, 256), torch.bfloat16, True),
@@ -428,16 +456,16 @@ def gn_kernel_phase(forward_shapes: Counter, last_batch_shapes: Counter) -> dict
             f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} backward "
             f"{r['bwd_ms']:.4f}")
     e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms", "bwd_ms"))
-    n_last = {s[0] for s, _, _ in last_batch_shapes}
-    say(f"  the driver's last batch of {sorted(n_last)}, per distinct shape (calls):")
-    last_err = 0.0
-    for (shape, dtype, silu), calls in sorted(last_batch_shapes.items(),
-                                              key=lambda kv: -np.prod(kv[0][0])):
-        r = check_gn(shape, dtype, silu, gen, measure=False)
-        last_err = max(last_err, r["max_abs_err"])
-        say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
-            f"{r['max_abs_err']:.3g} ({r['tol']})")
-    e[f"max_abs_err_batch_{'_'.join(map(str, sorted(n_last)))}"] = last_err
+    for n, shapes in sorted(small_batches.items(), reverse=True):
+        say(f"  the driver's batch of {n}, per distinct shape (calls):")
+        err = 0.0
+        for (shape, dtype, silu), calls in sorted(shapes.items(),
+                                                  key=lambda kv: -np.prod(kv[0][0])):
+            r = check_gn(shape, dtype, silu, gen, measure=False)
+            err = max(err, r["max_abs_err"])
+            say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
+                f"{r['max_abs_err']:.3g} ({r['tol']})")
+        e[f"max_abs_err_batch_{n}"] = err
     say(f"  sum over the {sum(forward_shapes.values())} calls of one forward: kernel "
         f"{e['ms']:.3f} ms (graph {e['graph_ms']:.3f} ms; passes "
         f"{fmt_passes(e['passes_ms'])}; {e['tbps']:.2f} TB/s on the function's bytes), "
@@ -2209,6 +2237,8 @@ def hooked_driver(run):
 
 
 def check_artifacts(outdir: Path, label: str, n: int, batches: int, fid: bool):
+    """The driver's outputs in ``outdir``: every image, finite totals of
+    ``n`` images, ``batches`` journal records over every rank's journal."""
     results = json.loads((outdir / "results.json").read_text())
     for sub in ("images", "cond_images", "forward_images"):
         got = sorted(p.name for p in (outdir / sub).glob("*.png"))
@@ -2216,7 +2246,8 @@ def check_artifacts(outdir: Path, label: str, n: int, batches: int, fid: bool):
             raise AssertionError(f"{label}: {sub}/ holds {got}")
     shape = png.read_png(str(outdir / "images" / "000000_000000.png")).shape
     keys = ("psnr", "ssim", "lpips") + (("fid",) if fid else ())
-    journal = (outdir / "metrics_rank00.jsonl").read_text().splitlines()
+    journal = [line for p in sorted(outdir.glob("metrics_rank*.jsonl"))
+               for line in p.read_text().splitlines()]
     text = (outdir / "results.txt").read_text()
     bad = [k for k in keys if not np.isfinite(results.get(k, np.nan))]
     if bad or results["images"] != n or len(journal) != batches or \
@@ -2229,32 +2260,48 @@ def check_artifacts(outdir: Path, label: str, n: int, batches: int, fid: bool):
     return results, shape
 
 
+def driver_args(seed: int) -> list:
+    """The command-line options every full-width driver run shares: the
+    ten bundled 256 px images (``data/imagenet``, whose ``dct_variance.pt``
+    is the Free Hunch prior), seeded random weights, bf16 torso with remat."""
+    data = ROOT / "data" / "imagenet"
+    return [f"--openai_setup_path={SETUP_256}", f"--openai_state_dict_path={CKPT_256}",
+            "--allow_random_init=true", f"--dataset_path={data}", f"--total_images={FULL_IMAGES}",
+            f"--batch_size={FULL_BATCH}", "--seeds=0", "--dtype=bfloat16", "--remat=true",
+            "--noise_sigma=0.1", "--num_other_images_to_save=10", "--mesh_shape=data:1",
+            f"--seed={seed}"]
+
+
+def bundled_images() -> np.ndarray:
+    """The ten bundled images, uint8 (10, 3, 256, 256)."""
+    from free_hunch_tpu_torch.data.dataset import ImageFolderDataset
+    ds = ImageFolderDataset(str(ROOT / "data" / "imagenet"))
+    return np.stack([ds[i][0] for i in range(len(ds))])
+
+
+def proxy_ref_stats(path: Path, dev: str) -> None:
+    """Proxy-Inception FID statistics of the bundled images, saved to ``path``."""
+    t0 = time.perf_counter()
+    extract, is_proxy = fid_mod.make_extractor(None, device=dev)
+    stats = fid_mod.FeatureStats()
+    images = bundled_images()
+    stats.add(extract(torch.as_tensor(images, device=dev).float() / 127.5 - 1))
+    stats.save(str(path), is_proxy=is_proxy)
+    say(f"driver: proxy FID statistics of the {len(images)} bundled images in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
 def driver_phase(seed: int, steps: int, smi: str, dev: str = "cuda") -> dict:
     """Phases 5b and 5c: the port's ``generate_conditional`` entry at full
-    width on the ten bundled images (``data/imagenet``, whose
-    ``dct_variance.pt`` is the prior), seeded random weights: Free Hunch on
+    width on the ten bundled images, seeded random weights: Free Hunch on
     the 61x61 gaussian blur with FID against proxy statistics of the same
     images, then DDNM+ on inpainting with a fresh mask per image. Returns
     K1's launches of each run."""
     out = {}
-    data = ROOT / "data" / "imagenet"
-    common = [f"--openai_setup_path={SETUP_256}", f"--openai_state_dict_path={CKPT_256}",
-              "--allow_random_init=true", f"--dataset_path={data}", f"--total_images={FULL_IMAGES}",
-              f"--batch_size={FULL_BATCH}", "--seeds=0", "--dtype=bfloat16", "--remat=true",
-              "--noise_sigma=0.1", "--num_other_images_to_save=10", "--mesh_shape=data:1",
-              f"--seed={seed}"]
+    common = driver_args(seed)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        t0 = time.perf_counter()
-        extract, is_proxy = fid_mod.make_extractor(None, device=dev)
-        stats = fid_mod.FeatureStats()
-        from free_hunch_tpu_torch.data.dataset import ImageFolderDataset
-        ds = ImageFolderDataset(str(data))
-        stats.add(extract(torch.as_tensor(np.stack([ds[i][0] for i in range(len(ds))]),
-                                          device=dev).float() / 127.5 - 1))
-        stats.save(str(tmp / "ref_stats.npz"), is_proxy=is_proxy)
-        say(f"driver: proxy FID statistics of the {len(ds)} bundled images in "
-            f"{time.perf_counter() - t0:.2f} s")
+        proxy_ref_stats(tmp / "ref_stats.npz", dev)
         fh_dir = tmp / "free_hunch"
         argv = common + [f"--outdir={fh_dir}", "--conditioning_mechanism=online_covariance",
                          "--image_base_covariance=dct_diagonal", "--operator_name=gaussian_blur",
@@ -2303,6 +2350,448 @@ def driver_phase(seed: int, steps: int, smi: str, dev: str = "cuda") -> dict:
     return out
 
 
+# -- phases 5d and 5e: the driver as a world of two ranks on the one card ------
+
+# Each rank's instrumentation, loaded at interpreter start through
+# PYTHONPATH (``sitecustomize``), so the ranks run the user's command
+# unchanged: a global forward pre-hook counts the GroupNorm32 calls, and at
+# exit the rank writes K1's launches, the hooks' count, its peak device
+# memory and its wall time. It first runs the ``sitecustomize`` that the
+# rest of the path holds, if any, so the ranks keep their environment.
+RANK_PROBE = """
+import atexit, importlib.machinery, importlib.util, json, os, sys, time
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+if os.environ.get("LOCAL_RANK") is not None and os.environ.get("FH_SMOKE_PROBE"):
+    _t0 = time.perf_counter()
+    import torch
+    from free_hunch_tpu_torch.models.unet import GroupNorm32
+    from free_hunch_tpu_torch.ops import groupnorm as _gn
+    _calls = [0]
+
+    def _count(mod, args):
+        if isinstance(mod, GroupNorm32):
+            _calls[0] += 1
+
+    torch.nn.modules.module.register_module_forward_pre_hook(_count)
+
+    def _report():
+        rank = int(os.environ["RANK"])
+        peak = torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_initialized() else 0.0
+        with open(os.path.join(os.environ["FH_SMOKE_PROBE"], f"rank{rank}.json"), "w") as f:
+            json.dump(dict(rank=rank, launches=_gn.launches, hooks=_calls[0], peak_gib=peak,
+                           wall_s=time.perf_counter() - _t0), f)
+
+    atexit.register(_report)
+"""
+WORLD = 2
+MP_TIMEOUT_S = 600
+DDNM_MP_BATCH = 2
+
+
+def driver_batch_sizes() -> set:
+    """The batch sizes K1 sees in the driver's runs: the ``FULL_IMAGES``
+    strided over one rank (5b, 5c) and over ``WORLD`` ranks (5d, at
+    ``FULL_BATCH``; 5e, at ``DDNM_MP_BATCH``), each rank's share cut into
+    batches."""
+    sizes = set()
+    for world, batch in ((1, FULL_BATCH), (WORLD, FULL_BATCH), (WORLD, DDNM_MP_BATCH)):
+        for rank in range(world):
+            n = len(shard_indices(FULL_IMAGES, world, rank))
+            sizes.update(min(batch, n - i) for i in range(0, n, batch))
+    return sizes
+
+
+def python_path(*dirs) -> str:
+    """``dirs`` ahead of the caller's ``PYTHONPATH``."""
+    return os.pathsep.join([str(d) for d in dirs] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p])
+
+
+def rank_env(rank: int, port: int, **extra) -> dict:
+    """The environment torchrun gives rank ``rank`` of ``WORLD`` on one
+    host, whose store (at ``port``) the launcher holds, as torchrun's agent
+    does: no port is chosen and then freed for a rank to bind."""
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               TORCHELASTIC_USE_AGENT_STORE="True", TORCHELASTIC_RESTART_COUNT="0",
+               PYTHONPATH=python_path(ROOT), OMP_NUM_THREADS="4")
+    env.update(extra)
+    return env
+
+
+def journal_records(outdir: Path) -> dict:
+    """rank -> the lines of its journal."""
+    return {int(p.stem[-2:]): p.read_text().splitlines()
+            for p in sorted(outdir.glob("metrics_rank*.jsonl"))}
+
+
+def weighted_totals(journals: dict) -> dict:
+    recs = [json.loads(line) for lines in journals.values() for line in lines]
+    n = sum(r["n"] for r in recs)
+    return {k: sum(r[k] * r["n"] for r in recs) / n for k in ("psnr", "ssim", "lpips")}
+
+
+def world2_phase(seed: int, steps: int, smi: str) -> int:
+    """Phase 5d: ``python -m torch.distributed.run --nproc_per_node=2 -m
+    free_hunch_tpu_torch.generate_conditional`` as a user starts it, both
+    ranks on the one card (gloo, which the port picks: NCCL cannot put two
+    ranks on one device), 5b's protocol with each rank's batch of 5. Returns
+    K1's launches over both ranks; each rank's equal its hooks."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        proxy_ref_stats(tmp / "ref_stats.npz", "cuda")
+        (tmp / "probe").mkdir()
+        (tmp / "site").mkdir()
+        (tmp / "site" / "sitecustomize.py").write_text(RANK_PROBE)
+        out = tmp / "world2"
+        argv = driver_args(seed) + [
+            f"--outdir={out}", "--conditioning_mechanism=online_covariance",
+            "--image_base_covariance=dct_diagonal", "--operator_name=gaussian_blur",
+            "--kernel_size=61", "--intensity=3.0", f"--num_steps={steps}",
+            "--cov_capacity=auto", f"--fid_ref_stats={tmp / 'ref_stats.npz'}"]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={WORLD}", "-m", "free_hunch_tpu_torch.generate_conditional",
+               *argv]
+        env = dict(os.environ, PYTHONPATH=python_path(tmp / "site", ROOT),
+                   FH_SMOKE_PROBE=str(tmp / "probe"), OMP_NUM_THREADS="4")
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=MP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"world of 2: exit {run.returncode}\n{run.stdout[-4000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        results, shape = check_artifacts(out, "world of 2", FULL_IMAGES, WORLD, fid=True)
+        probes = [json.loads((tmp / "probe" / f"rank{r}.json").read_text())
+                  for r in range(WORLD)]
+        journals = journal_records(out)
+        want = weighted_totals(journals)
+        bad = [k for k in want if abs(results[k] - want[k]) > 1e-12 * max(abs(want[k]), 1)]
+        say(f"driver 5d, torch.distributed.run --nproc_per_node={WORLD} generate_conditional "
+            f"(gloo, both ranks on the one card), 5b's protocol ({steps} Heun steps, batch "
+            f"{FULL_BATCH}: one batch of 5 per rank) on {smi}:")
+        say(f"  results: PSNR {results['psnr']:.4f}, SSIM {results['ssim']:.4f}, LPIPS "
+            f"{results['lpips']:.4f} (proxy), FID {results['fid']:.4f} (proxy, moments of "
+            f"both ranks), images {results['images']}; journals "
+            f"{ {r: len(v) for r, v in journals.items()} } records")
+        say(f"  wall: whole command {wall:.3f} s; per rank (interpreter start to exit) "
+            f"{[round(p['wall_s'], 3) for p in probes]} s; evaluation loop, rank 0 "
+            f"{results['time_taken']:.3f} s; {FULL_IMAGES / wall * 60:.3f} images per minute "
+            f"of the command")
+        say(f"  per rank: peak device memory {[round(p['peak_gib'], 3) for p in probes]} GiB; "
+            f"K1 launches {[p['launches'] for p in probes]} (hooks: "
+            f"{[p['hooks'] for p in probes]} GroupNorm32 calls)")
+        if bad or results["images"] != FULL_IMAGES or not np.isfinite(results["fid"]) or \
+                any(not 0 < p["launches"] == p["hooks"] for p in probes) or \
+                sorted(journals) != list(range(WORLD)):
+            raise AssertionError(f"world of 2: totals off the journals' weighted mean {bad}, "
+                                 f"results {results}, probes {probes}")
+        return sum(p["launches"] for p in probes)
+
+
+def ddnm_world(out: Path, seed: int, steps: int, envs=({}, {}), extra=()) -> tuple:
+    """Both ranks of a DDNM+ inpainting run started as torchrun starts them
+    (its environment), each with its own environment additions; returns the
+    processes, their log files and the rendezvous store they meet at."""
+    argv = driver_args(seed) + [f"--outdir={out}", "--conditioning_mechanism=ddnm",
+                                "--operator_name=inpainting", f"--num_steps={steps}",
+                                f"--batch_size={DDNM_MP_BATCH}", *extra]
+    store = torch.distributed.TCPStore("127.0.0.1", 0, is_master=True, wait_for_workers=False)
+    procs, logs = [], []
+    for r in range(WORLD):
+        log = open(out.parent / f"{out.name}_rank{r}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "free_hunch_tpu_torch.generate_conditional", *argv],
+            cwd=ROOT, env=rank_env(r, store.port, **envs[r]), stdout=log,
+            stderr=subprocess.STDOUT))
+    return procs, logs, store
+
+
+def wait_world(procs, logs, store, label: str, timeout: float = MP_TIMEOUT_S) -> list:
+    """Wait for the ranks (killing any past ``timeout``); ``store``, their
+    rendezvous, is held until then."""
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    for log in logs:
+        log.close()
+    if codes != [0] * WORLD:
+        tails = [Path(log.name).read_text()[-3000:] for log in logs]
+        raise AssertionError(f"{label}: exit codes {codes}\n" + "\n".join(tails))
+    return codes
+
+
+def kill_resume_phase(seed: int, steps: int, smi: str) -> None:
+    """Phase 5e: DDNM+ on inpainting (fresh mask per image, ``steps``
+    doubled, batch 2: three batches a rank, no FID) as a world of two on
+    the card, three ways: uninterrupted; with rank 1 armed by both gates
+    (``--fault_kill_after_batches=1`` and ``FREE_HUNCH_FAULT_INJECT=1``), so
+    it SIGKILLs itself after its first batch, and rank 0 killed once it has
+    journaled its batches or after a bounded wait; then both resumed. The
+    resumed journals keep the replayed records byte for byte; every record
+    and the totals agree with the uninterrupted run's within 5a's limits
+    (whether byte-equal too is reported)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        whole, fault = tmp / "whole", tmp / "fault"
+        t0 = time.perf_counter()
+        wait_world(*ddnm_world(whole, seed, steps), "5e uninterrupted")
+        wall_whole = time.perf_counter() - t0
+        want = journal_records(whole)
+        per_rank = len(want[0])
+
+        t0 = time.perf_counter()
+        procs, logs, store = ddnm_world(fault, seed, steps,
+                                        envs=({}, {"FREE_HUNCH_FAULT_INJECT": "1"}),
+                                        extra=("--fault_kill_after_batches=1",))
+        code1 = procs[1].wait(timeout=MP_TIMEOUT_S)
+        deadline = time.perf_counter() + 120
+        while procs[0].poll() is None and time.perf_counter() < deadline:
+            if len(journal_records(fault).get(0, [])) == per_rank:
+                time.sleep(5)  # its final gather waits for the dead peer
+                break
+            time.sleep(1)
+        if procs[0].poll() is None:
+            procs[0].kill()
+        code0 = procs[0].wait()
+        del store
+        for log in logs:
+            log.close()
+        wall_fault = time.perf_counter() - t0
+        kept = journal_records(fault)
+        if code1 != -signal.SIGKILL or len(kept.get(1, [])) != 1 or \
+                (fault / "results.json").exists():
+            raise AssertionError(f"5e fault run: rank 1 exit {code1} (want SIGKILL), journals "
+                                 f"{ {r: len(v) for r, v in kept.items()} }\n"
+                                 f"{Path(logs[1].name).read_text()[-3000:]}")
+
+        t0 = time.perf_counter()
+        wait_world(*ddnm_world(fault, seed, steps, extra=("--resume=true",)), "5e resumed")
+        wall_resume = time.perf_counter() - t0
+        got = journal_records(fault)
+        results = json.loads((fault / "results.json").read_text())
+        results_whole = json.loads((whole / "results.json").read_text())
+        bad, ratio, equal = [], {}, {}
+        n_kept = sum(len(v) for v in kept.values())
+        for r in range(WORLD):
+            if got[r][:len(kept[r])] != kept[r]:
+                bad.append(f"rank {r}: a replayed record changed")
+            if len(got[r]) != len(want[r]):
+                bad.append(f"rank {r}: {len(got[r])} records, want {len(want[r])}")
+            for i, (g, w) in enumerate(zip(got[r], want[r])):
+                gj, wj = json.loads(g), json.loads(w)
+                if gj["batch"] != wj["batch"] or gj["n"] != wj["n"]:
+                    bad.append(f"rank {r} record {i}: batch {gj['batch']} vs {wj['batch']}")
+                for k in ("psnr", "ssim", "lpips"):
+                    lim = DRIVER_METRIC_REL * max(abs(wj[k]), 1.0)
+                    ratio[f"rank {r} record {i} {k}"] = abs(gj[k] - wj[k]) / lim
+                equal[f"rank {r} record {i} ({'replayed' if i < len(kept[r]) else 'recomputed'})"] \
+                    = g == w
+        for k in ("psnr", "ssim", "lpips"):
+            ratio[f"totals {k}"] = abs(results[k] - results_whole[k]) / (
+                DRIVER_METRIC_REL * max(abs(results_whole[k]), 1.0))
+        bad += [k for k, v in ratio.items() if not v <= 1]
+        if results["resumed_batches"] != n_kept or results["images"] != FULL_IMAGES:
+            bad.append(f"resumed_batches {results['resumed_batches']} (want {n_kept}), images "
+                       f"{results['images']}")
+        say(f"driver 5e, kill and resume: DDNM+ inpainting ({2 * steps} steps, batch "
+            f"{DDNM_MP_BATCH}, {per_rank} batches a rank), world of 2 on the one card, on {smi}:")
+        say(f"  wall: uninterrupted {wall_whole:.3f} s; fault run {wall_fault:.3f} s (rank 1 "
+            f"exit {code1}, rank 0 exit {code0}; journaled {n_kept} batches: "
+            f"{ {r: len(v) for r, v in kept.items()} }); resumed {wall_resume:.3f} s "
+            f"(resumed_batches {results['resumed_batches']})")
+        say(f"  records byte-equal to the uninterrupted run's: {equal}; error / limit max "
+            f"{max(ratio.values()):.5f}; totals PSNR {results['psnr']:.4f} (uninterrupted "
+            f"{results_whole['psnr']:.4f})" + (f"; FAILS: {bad}" if bad else ""))
+        if bad:
+            raise AssertionError(f"5e kill and resume: {bad}")
+
+
+# -- phase 6: the SD-VAE at full width ------------------------------------------
+
+VAE_BATCH = 8
+VAE_SMALL_RES = 32
+
+
+def vae_norm_shapes(vae) -> tuple:
+    """Hooks on every VAEGroupNorm: (Counter of (NHWC shape, silu) -> calls,
+    the hooks' list, the running count)."""
+    from free_hunch_tpu_torch.models.vae import VAEGroupNorm
+    seen = Counter()
+
+    def hook(mod, args):
+        seen[(tuple(args[0].permute(0, 2, 3, 1).shape), mod.apply_silu)] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in vae.modules()
+             if isinstance(m, VAEGroupNorm)]
+    return seen, hooks
+
+
+def vae_layout_reading(vae, images, lat) -> None:
+    """The VAE interior's layout: channels-last (no copy at a norm) against
+    NCHW with a copy in and out of every norm, one encode + decode of a
+    batch, timed in turns."""
+    from free_hunch_tpu_torch.models import vae as vae_mod
+
+    dev = next(vae.parameters()).device
+    x8 = torch.as_tensor(images[:VAE_BATCH], device=dev).float() / 255
+    z8 = lat[:VAE_BATCH].contiguous()
+
+    def both():
+        with torch.no_grad():
+            vae.encode(x8)
+            vae.decode(z8)
+
+    plain_forward = vae_mod.VAEGroupNorm.forward
+
+    def copying_forward(self, x):
+        return plain_forward(self, x.contiguous()).contiguous()
+
+    layout = {"channels_last": [], "nchw_copies": []}
+    for turn in ("channels_last", "nchw_copies", "nchw_copies", "channels_last"):
+        if turn == "nchw_copies":
+            vae.to(memory_format=torch.contiguous_format)
+            vae_mod.VAEGroupNorm.forward = copying_forward
+            vae._in = lambda t: t.float().contiguous()
+        try:
+            layout[turn].append(time_ms(both, 3))
+        finally:
+            vae_mod.VAEGroupNorm.forward = plain_forward
+            vae.__dict__.pop("_in", None)
+            vae.to(memory_format=torch.channels_last)
+    say(f"  layout, one encode + decode of a batch of {VAE_BATCH} (ms, in turns): "
+        f"channels-last {[round(v, 3) for v in layout['channels_last']]}, NCHW with a copy "
+        f"in and out of each norm {[round(v, 3) for v in layout['nchw_copies']]}")
+
+
+def vae_phase(seed: int, smi: str, dev: str = "cuda", layout: bool = False) -> dict:
+    """Phase 6: ``StabilityVAEEncoder`` with ``VAEConfig()`` (sd-vae-ft-mse,
+    83,653,863 seeded random parameters, f32, TF32 off) on the ten bundled
+    256 px images, batch 8: ``encode_pixels``, ``encode_latents`` (a CPU
+    generator's draws), ``decode``; the wall of each direction, the peak
+    memory, K1's launches against the hooks (52 norms a batch, 2 batches);
+    K1 against its plain version at every distinct norm call (f32, eps
+    1e-6, 32 groups) with times against ``group_norm`` + ``silu`` and the
+    bytes bound; with ``layout`` (``--vae`` alone), the interior's layout
+    (channels-last, no copy at a norm) against NCHW with a copy in and out
+    of every norm, timed in turns; and the narrow VAE of the CPU tests on
+    the card against the CPU."""
+    from free_hunch_tpu_torch.data.encoders import StabilityVAEEncoder
+    from free_hunch_tpu_torch.models import vae as vae_mod
+
+    cfg = vae_mod.VAEConfig()
+    torch.manual_seed(seed)
+    state = vae_mod.AutoencoderKL(cfg).state_dict()
+    enc = StabilityVAEEncoder(batch_size=VAE_BATCH)
+    t0 = time.perf_counter()
+    enc.init(device=dev, params=state)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in enc.vae.parameters())
+    say(f"VAE (sd-vae-ft-mse layout, {n_params:,} seeded random parameters, f32) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    images = bundled_images()
+    seen, hooks = vae_norm_shapes(enc.vae)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    raw = enc.encode_pixels(images)
+    torch.cuda.synchronize()
+    t_pix = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lat = enc.encode_latents(raw, generator=torch.Generator().manual_seed(seed))
+    torch.cuda.synchronize()
+    t_lat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = enc.decode(lat)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches, calls = gn.launches, sum(seen.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
+    warm = []
+    for fn, arg in ((enc.encode_pixels, images), (enc.decode, lat)):
+        t0 = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    n = len(images)
+    batches = -(-n // VAE_BATCH)
+    n_norms = sum(isinstance(m, vae_mod.VAEGroupNorm) for m in enc.vae.modules())
+    f = cfg.downscale
+    ok = (tuple(raw.shape) == (n, 8, 256 // f, 256 // f) and tuple(lat.shape) == (n, 4, 32, 32)
+          and tuple(dec.shape) == (n, 3, 256, 256) and dec.dtype == torch.uint8
+          and bool(torch.isfinite(raw).all()) and bool(torch.isfinite(lat).all()))
+    say(f"VAE 6, StabilityVAEEncoder on the {n} bundled 256 px images, batch {VAE_BATCH} "
+        f"({batches} batches), on {smi}: encode_pixels {t_pix:.3f} s, encode_latents "
+        f"{t_lat:.4f} s, decode {t_dec:.3f} s (first calls; again: encode_pixels "
+        f"{warm[0]:.3f} s, decode {warm[1]:.3f} s); peak device memory {peak:.3f} GiB; latents "
+        f"{tuple(lat.shape)} std {float(lat.std()):.4f}; decoded {tuple(dec.shape)} "
+        f"{dec.dtype}; K1 launches {launches} (hooks: {calls} calls of the {n_norms} "
+        f"VAEGroupNorms, {len(seen)} distinct)")
+    if not ok or not 0 < launches == calls == n_norms * batches:
+        raise AssertionError(f"VAE: shapes or launches wrong: raw {tuple(raw.shape)} lat "
+                             f"{tuple(lat.shape)} dec {tuple(dec.shape)}, launches {launches}, "
+                             f"hooks {calls}, want {n_norms * batches}")
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    say("  K1 vs plain at every distinct VAE norm call (f32, eps 1e-6; calls x ms):")
+    for (shape, silu), k in sorted(seen.items(), key=lambda kv: -np.prod(kv[0][0])):
+        r = check_gn(shape, torch.float32, silu, gen, backward=False, groups=cfg.norm_num_groups,
+                     eps=cfg.norm_eps)
+        rows.append((k, r))
+        say(f"    {k:3d} x {r['shape']} silu={silu}: err {r['max_abs_err']:.3g} kernel "
+            f"{r['ms']:.4f} (graph {r['graph_ms']:.4f}) plain {r['plain_ms']:.4f} library "
+            f"{r['library_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms"))
+    say(f"  sum over the {calls} norm calls of the run: kernel {e['ms']:.3f} ms (graph "
+        f"{e['graph_ms']:.3f}), plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} "
+        f"ms, bound {e['bound_ms']:.3f} ms ({e['bound_by']}); max error {e['max_abs_err']:.3g}")
+
+    if layout:
+        vae_layout_reading(enc.vae, images, lat)
+
+    # the narrow VAE of the CPU tests, card against CPU, within their limits
+    small = vae_mod.VAEConfig(block_out_channels=(32, 64), layers_per_block=1,
+                              latent_channels=4, norm_num_groups=8)
+    torch.manual_seed(seed + 1)
+    cpu = vae_mod.AutoencoderKL(small).eval()
+    card = vae_mod.AutoencoderKL(small)
+    card.load_state_dict(cpu.state_dict())
+    card.to_device(dev).eval()
+    rng = np.random.default_rng(seed)
+    xs = torch.as_tensor(rng.uniform(0, 1, (3, 3, VAE_SMALL_RES, VAE_SMALL_RES)),
+                         dtype=torch.float32)
+    zs = torch.as_tensor(rng.normal(size=(3, 4, VAE_SMALL_RES // 2, VAE_SMALL_RES // 2)),
+                         dtype=torch.float32)
+    before = gn.launches
+    with torch.no_grad():
+        outs_cpu = (*cpu.encode(xs), cpu.decode(zs))
+        outs_card = (*card.encode(xs.to(dev)), card.decode(zs.to(dev)))
+    small_ratio = [float((g.cpu() - c).abs().max() / (1e-5 * c.abs().max()))
+                   for g, c in zip(outs_card, outs_cpu)]
+    say(f"  narrow VAE (32, 64 channels, 8 groups) at {VAE_SMALL_RES} px, card vs CPU: "
+        f"mean, std, decode error / (1e-5 of the largest |value|) "
+        f"{[round(v, 5) for v in small_ratio]}; K1 launches {gn.launches - before}")
+    if not max(small_ratio) <= 1 or gn.launches - before != 24:
+        raise AssertionError(f"narrow VAE: card vs CPU {small_ratio}, launches "
+                             f"{gn.launches - before}")
+    return dict(launches_vae=launches, max_abs_err_vae=e["max_abs_err"], ms_vae=e["ms"],
+                plain_ms_vae=e["plain_ms"], library_ms_vae=e["library_ms"],
+                bound_ms_vae=e["bound_ms"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -2324,6 +2813,11 @@ def main(argv=None) -> int:
     ap.add_argument("--driver", action="store_true", help="phases 5a-5c alone: the 32 px "
                     "driver reference and generate_conditional at full width (Free Hunch, "
                     "then DDNM+ with 2 * --steps steps) on the bundled images; no result lines")
+    ap.add_argument("--multiprocess", action="store_true", help="phases 5d and 5e alone: "
+                    "the driver as a world of two ranks on the card (torch.distributed.run), "
+                    "then kill and resume; no result lines")
+    ap.add_argument("--vae", action="store_true", help="phase 6 alone: the SD-VAE at full "
+                    "width on the bundled images, K1 at its norms; no result lines")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -2351,6 +2845,16 @@ def main(argv=None) -> int:
         driver_phase(args.seed, args.steps, smi)
         say(f"chip_smoke --driver wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args.multiprocess:
+        world2_phase(args.seed, args.steps, smi)
+        kill_resume_phase(args.seed, args.steps, smi)
+        say(f"chip_smoke --multiprocess wall time {time.perf_counter() - t_start:.1f} s "
+            f"on {smi}")
+        return 0
+    if args.vae:
+        vae_phase(args.seed, smi, layout=True)
+        say(f"chip_smoke --vae wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     t0 = time.perf_counter()
     model, model_args = loading.load_model(
         str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16,
@@ -2371,8 +2875,8 @@ def main(argv=None) -> int:
         return 0
     res = model_args["image_size"]
     gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"),
-                               gn_shapes_of_forward(model, FULL_IMAGES % FULL_BATCH, res,
-                                                    "cuda"))
+                               {n: gn_shapes_of_forward(model, n, res, "cuda")
+                                for n in driver_batch_sizes() - {args.batch}})
     reference_phase(args.seed)
     mechanism_reference_phase(args.seed)
     ddnm_reference_phase(args.seed)
@@ -2409,6 +2913,9 @@ def main(argv=None) -> int:
     driver_reference_phase(args.seed)
     for run_name, n in driver_phase(args.seed, args.steps, smi).items():
         gn_entry[f"launches_{run_name}"] = n
+    gn_entry["launches_driver_world2"] = world2_phase(args.seed, args.steps, smi)
+    kill_resume_phase(args.seed, args.steps, smi)
+    gn_entry.update(vae_phase(args.seed, smi))
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
@@ -2418,6 +2925,8 @@ def main(argv=None) -> int:
                     ("groupnorm_silu", qlaunches["groupnorm_silu"]),
                     ("groupnorm_silu", gn_entry["launches_driver"]),
                     ("groupnorm_silu", gn_entry["launches_driver_ddnm"]),
+                    ("groupnorm_silu", gn_entry["launches_driver_world2"]),
+                    ("groupnorm_silu", gn_entry["launches_vae"]),
                     ("gn_silu_quant", k2_entry["launches"]),
                     ("int8_conv", k3_entry["launches"])):
         if n <= 0:

@@ -18,10 +18,21 @@ Draws are made on the CPU and copied to the device, so a resumed run draws
 what an uninterrupted one does, and a run on the card what the same run on
 the CPU does; the numbers differ from the JAX package's draws.
 
-A world of one only: a world size above one, and a ``mesh_shape`` with a
-``model`` axis above one, raise until the port's multi-process and
-model-parallel paths exist (ROADMAP item 15). The JAX driver's
-fault-injection hook is left out with them.
+Data-parallel over processes, as the JAX driver is: each rank of the
+process group (``parallel/dist.py``; ``torchrun --nproc_per_node=N``)
+computes on its own card the images ``shard_indices`` strides to it, and
+the totals are gathered at the end: the sample-weighted metric means
+(``_process_mean``), the image and resumed-batch counts (``_process_sum``)
+and the FID moments (``metrics/fid.py::allgather_merge``). Rank 0 writes
+``results.txt`` and ``results.json``; each rank keeps its own journal.
+A ``mesh_shape`` with a data axis above one, or a model axis above one,
+raises (``parallel/mesh.py::check_mesh_shape``).
+
+Fault injection, for the kill-and-resume tests: with the option
+``fault_kill_after_batches=k`` and the environment variable
+``FREE_HUNCH_FAULT_INJECT=1`` both set, the process SIGKILLs itself after
+its k-th computed batch, once that batch's images and journal record are
+on disk. Either gate alone does nothing.
 """
 from __future__ import annotations
 
@@ -29,13 +40,14 @@ import dataclasses
 import hashlib
 import json
 import os
+import signal
 import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from free_hunch_tpu_torch import randn, resolve_device
+from free_hunch_tpu_torch import randn
 from free_hunch_tpu_torch.data import png
 from free_hunch_tpu_torch.data.dataset import shard_indices
 from free_hunch_tpu_torch.data.encoders import StandardRGBEncoder
@@ -45,7 +57,8 @@ from free_hunch_tpu_torch.models.loading import load_model, wrap_precond
 from free_hunch_tpu_torch.models.precond import PRECONDS
 from free_hunch_tpu_torch.operators import get_operator
 from free_hunch_tpu_torch.operators import masks as mask_mod
-from free_hunch_tpu_torch.parallel import dist_init, get_rank, get_world_size
+from free_hunch_tpu_torch.parallel import dist, get_rank, get_world_size
+from free_hunch_tpu_torch.parallel.mesh import check_mesh_shape
 from free_hunch_tpu_torch.samplers.edm import (prepare_schedule, required_cov_capacity,
                                                sample_loop)
 from free_hunch_tpu_torch.utils.dynamic import construct_class_by_name
@@ -53,7 +66,6 @@ from free_hunch_tpu_torch.utils.logging import setup_logger
 
 logger = setup_logger()
 
-_ITEM_15 = "(ROADMAP item 15: the port's multi-process and model-parallel driver)"
 _SCHEDULE_KEYS = ("num_steps", "sigma_min", "sigma_max", "rho", "solver",
                   "discretization", "schedule", "scaling", "S_churn", "S_min",
                   "S_max", "S_noise")
@@ -93,19 +105,11 @@ def build_operator_kwargs(opts) -> dict:
     return kw
 
 
-def _model_axis(mesh_shape: Optional[str]) -> int:
-    """The size of the ``model`` axis of a mesh string like 'data:4,model:2'."""
-    for part in (mesh_shape or "").split(","):
-        name, _, size = part.partition(":")
-        if name.strip() == "model":
-            return int(size)
-    return 1
-
-
 @dataclasses.dataclass
 class Evaluator:
-    """The driver. ``device`` (default CUDA, which raises without a card)
-    and the metric networks' weight files (``lpips_weights``,
+    """The driver. ``device`` (default: the rank's own card,
+    ``parallel/dist.py::rank_device``, which raises without one) and the
+    metric networks' weight files (``lpips_weights``,
     ``fid_weights``: the JAX package's npz files; ``None`` takes the
     flagged proxies) are Python arguments: the config schema stays the JAX
     package's."""
@@ -116,14 +120,10 @@ class Evaluator:
 
     def __post_init__(self):
         opts = self.opts
-        self.device = resolve_device(self.device)
-        dist_init()
+        dist.init()
         self.rank, self.world = get_rank(), get_world_size()
-        if self.world > 1:
-            raise NotImplementedError(f"a world of {self.world} processes {_ITEM_15}")
-        if _model_axis(opts.get("mesh_shape")) > 1:
-            raise NotImplementedError(f"mesh_shape={opts.get('mesh_shape')!r}: a model "
-                                      f"axis above one {_ITEM_15}")
+        check_mesh_shape(opts.get("mesh_shape"))
+        self.device = dist.rank_device(self.device)
         self.seed = int(opts.get("seed", 0))
 
         # --- model ----------------------------------------------------------
@@ -455,17 +455,29 @@ class Evaluator:
                     journal.flush()
                 n_batches += 1
                 logger.info(f"batch {n_batches}: psnr={p:.3f} ssim={s:.4f} lpips={lp:.4f}")
+                kill_after = (opts.get("fault_kill_after_batches")
+                              if os.environ.get("FREE_HUNCH_FAULT_INJECT") == "1" else None)
+                if kill_after is not None and 0 < int(kill_after) <= n_batches - n_resumed:
+                    # a hard crash once this batch's images and journal
+                    # record are on disk: a restart with --resume=true
+                    # replays the journal and recomputes the rest
+                    journal.close()
+                    logger.warning(f"fault injection: SIGKILL after {kill_after} computed "
+                                   f"batches")
+                    os.kill(os.getpid(), signal.SIGKILL)
 
         elapsed = time.time() - t0
-        totals = _process_mean(acc.means())
+        totals = _process_mean(acc.means(), acc.count)
         totals["time_taken"] = elapsed
         totals["images"] = _process_sum(len(self.indices) * n_seeds)
         totals["resumed_batches"] = _process_sum(n_resumed)
         totals["lpips_is_proxy"] = bool(self._lpips.is_proxy)
-        if self._fid is not None and self._fid["stats"].n >= 2:
-            # the extractor and the reference were checked to agree on proxy
-            totals["fid"] = self._fid["mod"].compute_fid(self._fid["stats"], self._fid["ref"])
-            totals["fid_is_proxy"] = bool(self._fid["is_proxy"])
+        if self._fid is not None:
+            st = self._fid["mod"].allgather_merge(self._fid["stats"])
+            if st.n >= 2:
+                # the extractor and the reference were checked to agree on proxy
+                totals["fid"] = self._fid["mod"].compute_fid(st, self._fid["ref"])
+                totals["fid_is_proxy"] = bool(self._fid["is_proxy"])
 
         if self.rank == 0:
             with open(os.path.join(outdir, "results.txt"), "w") as f:
@@ -500,15 +512,23 @@ class MetricAccumulator:
 
 
 def _process_sum(n: int) -> int:
-    """A rank-local integer summed over processes: in a world of one, the
-    only one ``Evaluator`` runs in yet, itself."""
-    return int(n)
+    """A rank-local integer summed over the process group."""
+    return int(dist.all_gather(np.asarray([n], np.int64)).sum())
 
 
-def _process_mean(means: dict) -> dict:
-    """Sample-weighted metric means over processes: in a world of one,
-    this process's."""
-    return dict(means)
+def _process_mean(means: dict, n_samples: int) -> dict:
+    """Sample-weighted metric means over the process group: each rank's
+    (mean x count, count) gathered, summed and divided once, so unequal
+    shards weigh by their samples."""
+    n = float(n_samples)
+    arr = np.asarray([means["psnr"] * n, means["ssim"] * n, means["lpips"] * n, n])
+    gathered = dist.all_gather(arr)
+    if gathered.shape[0] == 1:
+        return dict(means)
+    sums = gathered[:, :3].sum(axis=0)
+    count = max(gathered[:, 3].sum(), 1.0)
+    return dict(means, psnr=float(sums[0] / count), ssim=float(sums[1] / count),
+                lpips=float(sums[2] / count))
 
 
 def _save_images(images_u8: np.ndarray, image_dir: str, names) -> None:

@@ -19,7 +19,7 @@ from __future__ import annotations
 import os
 
 from free_hunch_tpu_torch.config import load_config
-from free_hunch_tpu_torch.parallel import dist_init, get_rank
+from free_hunch_tpu_torch.parallel import dist, get_rank
 from free_hunch_tpu_torch.utils.logging import Tee, setup_logger
 
 logger = setup_logger()
@@ -47,18 +47,21 @@ def cmdline(argv=None, device=None, lpips_weights=None, fid_weights=None) -> dic
         return Evaluator(opts, **kw).run()
 
     # the process group, when there is one, exists before the first rank query
-    dist_init()
+    dist.init()
 
     def summarize(results):
         print(f"Time taken: {results.get('time_taken', float('nan')):.1f}s")
         print(f"PSNR: {results['psnr']}, SSIM: {results['ssim']}, LPIPS: {results['lpips']}")
 
-    if get_rank() == 0:
-        with Tee(os.path.join(opts.outdir, "output.log")):
+    try:
+        if get_rank() == 0:
+            with Tee(os.path.join(opts.outdir, "output.log")):
+                results = run()
+                summarize(results)
+        else:
             results = run()
-            summarize(results)
-    else:
-        results = run()
+    finally:
+        dist.destroy()
     return results
 
 

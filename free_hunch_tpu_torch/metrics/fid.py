@@ -17,8 +17,8 @@ at an explicit path; the port reads no environment variable. Without a
 path the extractor takes deterministic seeded random weights, bitwise the
 JAX package's, and results carry ``fid_is_proxy: true``: a random-feature
 Frechet distance is a valid two-sample discrepancy but not comparable to
-published FID. Merging moments across processes waits for the port's
-multi-process driver.
+published FID. ``allgather_merge`` sums the moments of every rank of the
+process group exactly.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from free_hunch_tpu_torch import check_full_f32, resolve_device, use_full_f32
+from free_hunch_tpu_torch.parallel import dist
 
 # ---------------------------------------------------------------------------
 # InceptionV3 (pytorch-fid variant) — architecture table.
@@ -380,6 +381,17 @@ class FeatureStats:
         mu, sigma = self.mu_sigma()
         extra = {} if is_proxy is None else dict(is_proxy=is_proxy)
         np.savez(path, mu=mu, sigma=sigma, n=self.n, **extra)
+
+
+def allgather_merge(st: FeatureStats) -> FeatureStats:
+    """The moments of every rank of the process group merged in rank order:
+    equal to those of one process that added every rank's features, since
+    the float64 sums travel as they are (``parallel/dist.py::all_gather``)."""
+    packed = np.concatenate([[float(st.n)], st.s, st.ss.reshape(-1)])
+    merged = FeatureStats(st.dim)
+    for row in dist.all_gather(packed):
+        merged.merge_arrays(row[0], row[1:1 + st.dim], row[1 + st.dim:].reshape(st.dim, st.dim))
+    return merged
 
 
 def load_ref_stats(path: str) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,9 +13,16 @@ calibration table across: the JAX package's is (sigmas, a 'qscales' tree
 keyed by flax module paths such as ``down_3_res/in_conv/act_scale``); the
 port's is (sigmas, {torch module name: scales}), e.g.
 ``input_blocks.4.0.in_layers.2``. The site pairs come from ``name_map``.
+
+``vae_state_dict_from_flax`` does the same for the SD-VAE of
+``free_hunch_tpu/models/vae.py`` (flax module paths such as
+``encoder/down_0_resnet_1/norm1`` -> diffusers names such as
+``encoder.down_blocks.0.resnets.1.norm1``), and ``load_vae_npz`` reads that
+package's weights file.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -204,3 +211,63 @@ def qscales_to_flax(qscales, cfg: UNetConfig) -> Tuple[np.ndarray, dict]:
             node = node.setdefault(key, {})
         node["act_scale"] = np.asarray(scales, np.float32)
     return np.asarray(sigmas, np.float32), tree
+
+
+# -- the SD-VAE (models/vae.py) ----------------------------------------------
+
+def _vae_module_name(path: Tuple[str, ...]) -> str:
+    """A flax module path of ``free_hunch_tpu/models/vae.py`` -> the
+    diffusers module name the port uses."""
+    out: List[str] = []
+    for p in path:
+        m = re.fullmatch(r"(down|up)_(\d+)_resnet_(\d+)", p)
+        if m:
+            out += [f"{m[1]}_blocks", m[2], "resnets", m[3]]
+            continue
+        m = re.fullmatch(r"(down|up)_(\d+)_(downsample|upsample)", p)
+        if m:
+            out += [f"{m[1]}_blocks", m[2], f"{m[3]}rs", "0", "conv"]
+            continue
+        m = re.fullmatch(r"(resnets|attentions)_(\d+)", p)
+        if m:
+            out += [m[1], m[2]]
+            continue
+        out.append({"mid": "mid_block", "to_out": "to_out.0"}.get(p, p))
+    return ".".join(out)
+
+
+def vae_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's AutoencoderKL parameters ({'params': nested dicts
+    of arrays}, or the inner dict) -> the port's state dict (f32 CPU
+    tensors, diffusers names): HWIO -> OIHW for convolutions, (I, O) ->
+    (O, I) for linears, GroupNorm ``scale`` -> ``weight``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        w = np.asarray(node, np.float32)
+        leaf = path[-1]
+        if leaf == "kernel":
+            w = np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T
+        name = "bias" if leaf == "bias" else "weight"
+        out[f"{_vae_module_name(path[:-1])}.{name}"] = torch.from_numpy(np.array(w, order="C"))
+
+    walk(params.get("params", params), ())
+    return out
+
+
+def load_vae_npz(path: str) -> dict:
+    """The JAX package's SD-VAE weights file (an npz of the flattened
+    parameter tree, '/'-joined keys) -> {'params': nested dicts}."""
+    tree: dict = {}
+    with np.load(path) as blob:
+        for key in blob.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = np.asarray(blob[key])
+    return {"params": tree.get("params", tree)}

@@ -3,7 +3,8 @@ inpainting operator that ``DDNMEvaluator`` builds from its masks, the
 draws from a CPU generator that give a run on the card the CPU's inputs,
 and, on the card, K1 at every GroupNorm shape of the driver's last batch
 (ten images at batch 8 end with a batch of 2, whose plan has more and
-shorter chunks per sample than batch 8's). The card tests skip without
+shorter chunks per sample than batch 8's) and of a rank's batches in a
+world of two (5, and 1). The card tests skip without
 an NVIDIA card (a CUDA kernel has no CPU mode). The file imports no JAX
 (so not ``_torch_parity``; its CPU tests are a few small draws), so it
 also runs where JAX is not installed:
@@ -66,17 +67,20 @@ def test_randn_gives_the_card_the_cpu_draws():
         assert d.is_cuda and torch.equal(d.cpu(), torch.randn((8, 3, 64, 64), generator=ref))
 
 
-LAST_BATCH = sorted({(s, z) for _, s, z in norm_calls(batch=10 % 8)},
-                    key=lambda k: (-k[0][1], -k[0][3]))
+# ten images at batch 8 end with a batch of 2; a world of two ranks strides
+# them 5 and 5: one batch of 5 each at batch 8, and 2, 2, 1 at batch 2
+SMALL_BATCHES = sorted({(n, s, z) for n in (2, 5, 1) for _, s, z in norm_calls(batch=n)},
+                       key=lambda k: (k[0] != 2, -k[0], -k[1][1], -k[1][3]))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,itemsize", LAST_BATCH,
-                         ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
-                              for s, z in LAST_BATCH])
-def test_k1_matches_plain_at_every_shape_of_the_last_batch(shape, itemsize):
-    """K1 with and without SiLU on the path its planner takes at batch 2:
-    two bf16 ulps, or 1e-5 in f32, as at batch 8."""
+@pytest.mark.parametrize("n,shape,itemsize", SMALL_BATCHES,
+                         ids=[f"batch{n}_{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
+                              for n, s, z in SMALL_BATCHES])
+def test_k1_matches_plain_at_every_shape_of_the_last_batch(n, shape, itemsize):
+    """K1 with and without SiLU on the path its planner takes at the
+    driver's smaller batches (2, and a rank's 5 and 1): two bf16 ulps, or
+    1e-5 in f32, as at batch 8."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
     from free_hunch_tpu_torch.ops import groupnorm as gn

@@ -1,6 +1,6 @@
-"""The card's machine has no PIL, no PyYAML and no OpenCV. In a fresh
-interpreter where importing any of them fails, the port's driver modules
-import, a bundled PNG reads through the dataset at its own 256 px, an
+"""The card's machine has no PIL, no PyYAML, no OpenCV and no diffusers. In
+a fresh interpreter where importing any of them fails, the port's driver
+modules (and the multi-process runtime and the SD-VAE) import, a bundled PNG reads through the dataset at its own 256 px, an
 image saves through the driver's writer and the config loads; only a
 resize, which needs PIL, raises ``ImportError`` and says why."""
 import os
@@ -12,7 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
     import sys
-    for name in ("PIL", "PIL.Image", "yaml", "cv2"):
+    for name in ("PIL", "PIL.Image", "yaml", "cv2", "diffusers"):
         sys.modules[name] = None          # any import of it raises ImportError
     import numpy as np
     import free_hunch_tpu_torch.generate_conditional
@@ -21,6 +21,10 @@ SCRIPT = textwrap.dedent("""
     import free_hunch_tpu_torch.metrics.fid
     import free_hunch_tpu_torch.metrics.lpips
     import free_hunch_tpu_torch.metrics.quality
+    import free_hunch_tpu_torch.parallel.mesh
+    import free_hunch_tpu_torch.utils.stats
+    from free_hunch_tpu_torch.data.encoders import StabilityVAEEncoder
+    from free_hunch_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     from free_hunch_tpu_torch.config import load_config
     from free_hunch_tpu_torch.data import png
     from free_hunch_tpu_torch.data.dataset import ImageFolderDataset
@@ -39,7 +43,11 @@ SCRIPT = textwrap.dedent("""
         assert "PIL is needed to resize" in str(e), e
     else:
         raise AssertionError("a resize without PIL did not raise")
-    for name in ("PIL", "yaml", "cv2"):
+    enc = StabilityVAEEncoder(cfg=VAEConfig(block_out_channels=(32,), layers_per_block=1,
+                                            norm_num_groups=8))
+    enc.init(device="cpu", params=AutoencoderKL(enc.cfg).state_dict())
+    assert tuple(enc.encode_pixels(np.zeros((1, 3, 8, 8), np.uint8)).shape) == (1, 8, 8, 8)
+    for name in ("PIL", "yaml", "cv2", "diffusers"):
         assert sys.modules[name] is None
     print("OK")
 """)

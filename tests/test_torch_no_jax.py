@@ -41,7 +41,8 @@ def forbidden_imports(source: str, filename: str = "<src>"):
 def test_the_port_has_files_to_check():
     assert "free_hunch_tpu_torch/__init__.py" in PORT_FILES
     for module in ("operators/svd.py", "samplers/ddnm.py", "samplers/edm.py",
-                   "models/precond.py"):
+                   "models/precond.py", "parallel/dist.py", "parallel/mesh.py",
+                   "utils/stats.py", "models/vae.py", "data/encoders.py"):
         assert f"free_hunch_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
