@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``free_hunch_tpu_torch``) on one card.
 
-    python3 chip_smoke.py                      # batch 8, 30 Heun steps
+    python3 chip_smoke.py                      # batch 8, 10 Heun steps
+    python3 chip_smoke.py --steps 30           # the paper's 30 Heun steps
     python3 chip_smoke.py --batch 2 --steps 3  # a shorter rehearsal
     python3 chip_smoke.py --k3                 # K3 alone: host and device
                                                # time, every small-layer cut
@@ -12,6 +13,7 @@
     python3 chip_smoke.py --driver             # phases 5a-5c alone
     python3 chip_smoke.py --multiprocess       # phases 5d and 5e alone
     python3 chip_smoke.py --vae                # phase 6 alone
+    python3 chip_smoke.py --model-axis         # phase 7 alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -53,20 +55,21 @@ Phases, in order; any failure raises and exits non-zero:
    torso, then on the int8 torso with the fused GroupNorm route
    (``quant="int8"``, ``fused_gn_quant=True``). For each, the kernels'
    launch counters are zeroed just before its first run and read just after
-   it, and checked against the module calls counted by hooks; one more run
-   under ``torch.profiler`` gives the device time by kernel family and the
-   device's idle share.
+   it, and checked against the module calls counted by hooks; one more run,
+   cut to ``PROFILE_STEPS`` (3) Heun steps, under ``torch.profiler`` gives
+   the device time by kernel family and the device's idle share, and one
+   traced guided call the GroupNorm backward's share.
 4b. the same protocol on the bf16 torso for super-resolution x4 and for
    inpainting with a random mask, one run each (wall time, peak memory, CG
    niter, K1 launches against the hooks).
 4c. a sweep of the seven other mechanisms on gaussian blur, SR x4 and
-   inpainting at full width (batch 2, 3 Heun steps): wall ms and K1
-   launches per guided call.
+   inpainting at full width (batch 2, ``SWEEP_STEPS`` (2) Heun steps): wall
+   ms and K1 launches per guided call.
 4d. one pixel-space and one Fourier-coordinate deblur CG iteration at
    256 px, batch 8, on the same system: the reading behind
    ``cg_coords='auto'``.
 4e. DDNM+ through the raw 256 px bf16 UNet on the DDPM grid, batch 8,
-   twice the Heun step count (60 steps), sigma_y 0.1, eta 1.0, on the
+   twice the Heun step count (20 steps), sigma_y 0.1, eta 1.0, on the
    gaussian blur, SR x4 and inpainting with a random mask: wall time, peak
    memory, ||A x - y|| / ||y||, the final sample, and K1's launches, equal
    to the hooks' GroupNorm32 count; each operator's count joins K1's
@@ -81,24 +84,26 @@ Phases, in order; any failure raises and exits non-zero:
    the proxy Inception's features within 1e-4.
 5b. the driver at full width: ``generate_conditional.cmdline`` on the ten
    bundled 256 px images (seeded random weights, bf16 torso with remat),
-   Free Hunch with the DCT-diagonal prior on the 61x61 gaussian blur, 30
-   Heun steps, batch 8, FID against proxy statistics of the same images:
+   Free Hunch with the DCT-diagonal prior on the 61x61 gaussian blur,
+   ``--steps`` Heun steps, batch 8, FID against proxy statistics of the same images:
    the artifacts checked, wall per batch, images per minute, the share of
    wall outside ``sample_loop``, peak memory, K1 launches against the
    hooks (``launches_driver`` in K1's entry).
 5c. the same entry with ``--conditioning_mechanism=ddnm`` on inpainting
-   with a fresh mask per image, the steps doubled to 60
+   with a fresh mask per image, the steps doubled
    (``launches_driver_ddnm``).
 5d. the driver as a world of two ranks on the one card, started as a user
    starts it (``python -m torch.distributed.run --nproc_per_node=2 -m
    free_hunch_tpu_torch.generate_conditional``; gloo, since NCCL cannot put
-   two ranks on one device), 5b's protocol with a batch of 5 a rank: the
+   two ranks on one device), 5b's protocol with a batch of 5 a rank at
+   ``MP_STEPS`` (5) Heun steps in the whole script (``--multiprocess``
+   alone: ``--steps``): the
    artifacts, 10 images, totals equal to the sample-weighted mean of both
    journals, FID of both ranks' moments, each rank's K1 launches equal to
    its hooks (``launches_driver_world2``, both ranks), peak memory and wall
    per rank.
-5e. kill and resume: DDNM+ on inpainting at batch 2 (three batches a rank)
-   as a world of two, uninterrupted, then with rank 1 armed to SIGKILL
+5e. kill and resume: DDNM+ on inpainting at batch 2 (three batches a rank,
+   twice 5d's steps) as a world of two, uninterrupted, then with rank 1 armed to SIGKILL
    itself after one batch, then resumed: replayed records unchanged, every
    record and the totals within 5a's limits of the uninterrupted run.
 6. the SD-VAE at full width (sd-vae-ft-mse, 83,653,863 seeded random
@@ -110,6 +115,33 @@ Phases, in order; any failure raises and exits non-zero:
    ``plain_ms_vae``, ``library_ms_vae``, ``bound_ms_vae``), the
    channels-last interior against NCHW with copies, and the narrow VAE of
    the CPU tests on the card against the CPU.
+7. the model axis (``mesh_shape=data:1,model:2``), two ranks of one model
+   group on the one card over gloo. 7a: ``python -m torch.distributed.run
+   --nproc_per_node=2 chip_smoke.py --model-axis-rank=<dir>``; each rank
+   builds the 256 px bf16 UNet with remat, height-sharded over the group (the
+   same seeded weights, checked by a hash), holds K1's sharded path (stats
+   entry, gather, apply entry that merges) to ``groupnorm_silu_sharded_plain``
+   at every distinct shard shape of one forward and times it against the
+   unsharded K1 at the whole shape (and checks it at every shard shape of
+   7b's batch), then runs Free Hunch with the d-sharded state (the slice's
+   operator and prior, capacity 34, batch 8,
+   3 Heun steps: 5 guided calls), recording each call's wall, the
+   collectives and the bytes each rank sends, K1's stats and apply
+   launches against the hooks, the covariance state's bytes and the peak
+   memory; rank 0 then replays each guided call unsharded from the sharded
+   run's inputs and gathered state (``MA_CALL_REL_RMS`` per call, equal CG
+   counts) and runs the same steps unsharded (the final sample within
+   ``MA_FINAL_REL_RMS``; wall per call; peak memory). 7b: the driver as a
+   user starts it with ``--mesh_shape=data:1,model:2`` on two bundled
+   images, 5 Heun steps: two images counted, one journal, the ranks'
+   totals, x0 and samples equal, the first guided call's x0 within
+   ``MA_CALL_REL_RMS`` of the same command's as a world of one (every
+   call and the final samples read), PSNR and SSIM within ``MA_PSNR_ABS``
+   and ``MA_SSIM_ABS`` of its, each rank's K1 stats and apply launches
+   equal to its hooks; ``--model-axis`` alone also runs 7b without halos,
+   a control that must break the first call's limit. K1's sharded entry
+   joins the ``kernels`` line as ``groupnorm_silu_sharded``, with
+   ``max_abs_err_batch_2`` from every shard shape of 7b's batch.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -118,6 +150,8 @@ and exits with code 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import os
 import re
@@ -183,6 +217,18 @@ K3_ENTRY = dict(name="int8_conv", route="cuda",
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+PHASE_WALLS: dict = {}
+
+
+@contextlib.contextmanager
+def timed_phase(name: str):
+    """Record the host wall of one phase of the whole script, in seconds."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_WALLS[name] = round(time.perf_counter() - t0, 1)
+    say(f"phase {name}: {PHASE_WALLS[name]} s of wall time")
 
 
 def sync(dev):
@@ -1501,10 +1547,15 @@ def slice_operator(name: str, res: int, dev, seed: int):
     return get_operator(name, **kw)
 
 
+PROFILE_STEPS = 3  # the profiled run's depth (5 guided calls)
+SWEEP_STEPS = 2    # 4c: 3 guided calls a mechanism and operator
+
+
 def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
                 label: str, op_name: str = "gaussian_blur", profile: bool = True):
     """The bench.py protocol on ``model`` and the operator ``op_name``
-    (with ``profile``, one more run under the profiler); returns the first
+    (with ``profile``, one more run of at most ``PROFILE_STEPS`` Heun steps
+    under the profiler, then one guided call traced); returns the first
     run's launch counts and the wall time of every run."""
     dev = next(model.parameters()).device
     res = model_args["image_size"]
@@ -1565,15 +1616,23 @@ def slice_phase(model, model_args, batch: int, steps: int, runs: int, seed: int,
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for h in hooks:
         h.remove()
-    busy = profile and device_breakdown(lambda: edm.sample_loop(denoise, mech, noise, y, xs,
-                                                                gen, sigma0_scaled=s0))
+    # the profiler's processing grows with the run's kernels: it reads a run
+    # cut to PROFILE_STEPS Heun steps
+    psteps = min(steps, PROFILE_STEPS)
+    pxs, ps0 = schedule(precond, psteps)
+    t0 = time.perf_counter()
+    busy = profile and device_breakdown(lambda: edm.sample_loop(denoise, mech, noise, y, pxs,
+                                                                gen, sigma0_scaled=ps0))
     fused = counted["calls"].get("fused", 0)
     if busy:
+        t1 = time.perf_counter()
         fh = mech.mech
         backward_share(lambda: fh(denoise, noise * s0, y, float(xs["sigma_hat"][0]),
                                   fh.init_state(batch, (3, res, res))),
-                       counted["forwards"], busy,
+                       2 * psteps - 1, busy,
                        RANGES[1] if fused else RANGES[0])
+        say(f"  profiler wall: the {psteps}-step run and its breakdown {t1 - t0:.1f} s, "
+            f"the traced guided call {time.perf_counter() - t1:.1f} s")
 
     x, diag = counted["x"], counted["diag"]
     if tuple(x.shape) != (batch, 3, res, res) or not bool(torch.isfinite(x).all()):
@@ -1706,7 +1765,7 @@ def mechanism_phases(model, model_args, args) -> dict:
         say(f"bf16 {op_name} sampling wall time per run (s): {[round(w, 3) for w in walls]}")
         out[op_name] = launches
         torch.cuda.empty_cache()
-    sweep_phase(model, model_args, 2, 3, args.seed)
+    sweep_phase(model, model_args, 2, SWEEP_STEPS, args.seed)
     cg_coords_phase(args.batch, args.seed, model_args["image_size"],
                     next(model.parameters()).device)
     return out
@@ -2354,9 +2413,11 @@ def driver_phase(seed: int, steps: int, smi: str, dev: str = "cuda") -> dict:
 
 # Each rank's instrumentation, loaded at interpreter start through
 # PYTHONPATH (``sitecustomize``), so the ranks run the user's command
-# unchanged: a global forward pre-hook counts the GroupNorm32 calls, and at
-# exit the rank writes K1's launches, the hooks' count, its peak device
-# memory and its wall time. It first runs the ``sitecustomize`` that the
+# unchanged: a global forward pre-hook counts the GroupNorm32 calls, the
+# Evaluator's totals are kept, and at exit the rank writes K1's launches
+# (unsharded and, under a model axis, the sharded stats and apply
+# entries'), the hooks' count, the totals, its peak device memory and its
+# wall time. It first runs the ``sitecustomize`` that the
 # rest of the path holds, if any, so the ranks keep their environment.
 RANK_PROBE = """
 import atexit, importlib.machinery, importlib.util, json, os, sys, time
@@ -2377,17 +2438,41 @@ if os.environ.get("LOCAL_RANK") is not None and os.environ.get("FH_SMOKE_PROBE")
             _calls[0] += 1
 
     torch.nn.modules.module.register_module_forward_pre_hook(_count)
+    from free_hunch_tpu_torch import eval as _ev
+    _run, _totals = _ev.Evaluator.run, {}
+    _samples = None
+    if os.environ.get("FH_SMOKE_SAMPLES"):
+        import chip_smoke as _cs
+        _samples = {"d": [], "x0": [], "x": [], "niter": []}
+        _keeping = _cs.keeping_samples(_samples)  # held: its exit restores the loop
+        _keeping.__enter__()
+        if os.environ.get("FH_SMOKE_NO_HALO"):
+            from free_hunch_tpu_torch.parallel import collectives as _coll
+            _coll.halo_rows = _cs.no_halo
+
+    def _keep(self):
+        res = _run(self)
+        _totals.update({k: v for k, v in res.items()
+                        if isinstance(v, (int, float)) and k != "time_taken"})
+        return res
+
+    _ev.Evaluator.run = _keep
 
     def _report():
         rank = int(os.environ["RANK"])
         peak = torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_initialized() else 0.0
         with open(os.path.join(os.environ["FH_SMOKE_PROBE"], f"rank{rank}.json"), "w") as f:
             json.dump(dict(rank=rank, launches=_gn.launches, hooks=_calls[0], peak_gib=peak,
-                           wall_s=time.perf_counter() - _t0), f)
+                           wall_s=time.perf_counter() - _t0, sharded=_gn.sharded_launches,
+                           totals=_totals), f)
+        if _samples is not None:
+            _keeping.__exit__(None, None, None)
+            torch.save(_samples, os.path.join(os.environ["FH_SMOKE_PROBE"], f"rank{rank}_x.pt"))
 
     atexit.register(_report)
 """
 WORLD = 2
+MP_STEPS = 5  # 5d's and 5e's depth in the whole script
 MP_TIMEOUT_S = 600
 DDNM_MP_BATCH = 2
 
@@ -2792,11 +2877,597 @@ def vae_phase(seed: int, smi: str, dev: str = "cuda", layout: bool = False) -> d
                 bound_ms_vae=e["bound_ms"])
 
 
+# -- phase 7: the model axis: one model group of two ranks on the one card ------
+
+MA_MESH = "data:1,model:2"
+MA_WORLD = 2
+MA_STEPS = 3          # 7a: 3 Heun steps, 5 guided calls
+MA_CAP = 34
+MA_DRIVER_IMAGES, MA_DRIVER_STEPS = 2, 5
+MA_TIMEOUT_S = 600
+# 7a's limits, sharded against unsharded, as relative RMS (||a - b|| / ||b||).
+# Per guided call (teacher-forced: the unsharded mechanism from the
+# sharded run's x_t and its state gathered whole) 1e-2: the bf16 torso
+# rounds once more or less where cuDNN takes other algorithms on the
+# half-height shapes and where the shards' statistics merge in another
+# order; measured 1.72e-6 to 1.74e-3 teacher-forced, 1.47e-3 to 1.74e-3
+# free-running at the first four calls (NVIDIA H100 80GB HBM3, 700 W); a
+# shard without its halos reads 4.7e-2 (32 px, CPU). The final sample of
+# the two free-running runs 5e-2: the last Heun corrector divides the
+# fourth call's guidance update by sigma = 0.002 and scales it by h / 2 =
+# 1.729 (864x), so that call's bf16 noise reaches the sample; measured
+# 2.09e-2 on the card, and 1.87e-2 at 32 px on the CPU
+# (tests/test_torch_chip_smoke_model_axis.py); without halos 0.238.
+MA_CALL_REL_RMS, MA_FINAL_REL_RMS = 1e-2, 5e-2
+# 7b, the model axis against a world of one. The first guided call's
+# denoiser output (the UNet's, before the guidance) starts from equal
+# inputs; it differs by the bf16 torso's rounding on half-height shapes and
+# the merge order, 1.64e-3 relative RMS on the card, and 1.89e-2 without
+# halos (NVIDIA H100 80GB HBM3, 700 W; 8.4e-4 and 4.3e-2 at 32 px on the
+# CPU): held to 5e-3, about 3x from each. The guidance and the last Heun
+# corrector amplify the difference: x0 read 3.9e-2 at the first call (3.0e-2
+# without halos) and the final samples 0.320 (0.319 without halos), so
+# they, and the CG counts, are read, not held. PSNR and SSIM, computed from
+# the final samples, are held only to agree within that noise: read 9.1e-4
+# and 0.026 dB, 3.2e-5 and 2.2e-3 in two runs whose K1 rounded its merge
+# differently (without halos 0.0047 dB, 1.4e-3). Random weights put PSNR
+# near 4.2 dB.
+MA_DENOISED_REL_RMS = 5e-3
+MA_PSNR_ABS, MA_SSIM_ABS = 0.1, 1e-2
+GNS_ENTRY = dict(name="groupnorm_silu_sharded", route="cuda",
+                 source="free_hunch_tpu_torch/csrc/groupnorm.cu",
+                 replaces="free_hunch_tpu/ops/pallas_groupnorm.py:117")
+
+
+def rel_rms_err(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm((got - want).ravel()) / max(np.linalg.norm(want.ravel()),
+                                                             1e-30))
+
+
+class ShardedCallRecorder:
+    """Pass-through guidance mechanism that records each call's x0, CG
+    count, wall ms (the card synchronised on both sides), and the model
+    group's collectives and the bytes this rank contributed to them. With
+    ``keep_inputs`` it also keeps each call's x_t, sigma and state on the
+    host, the d-sharded covariance gathered whole (outside the counts and
+    the wall), for a teacher-forced unsharded replay."""
+
+    def __init__(self, mech, dev="cuda", keep_inputs=False):
+        from free_hunch_tpu_torch.parallel import collectives as coll
+        self.mech, self.calls, self.coll, self.state, self.dev = mech, [], coll, None, dev
+        self.keep_inputs = keep_inputs
+
+    def init_state(self, batch, img_shape):
+        return self.mech.init_state(batch, img_shape)
+
+    def _whole(self, state):
+        from free_hunch_tpu_torch.parallel import sharded_cov
+        cov, mg = state.cov, self.mech.model_group
+        with torch.no_grad():
+            cov = cov._replace(diag=sharded_cov.gather_d(cov.diag, mg),
+                               Ut=self.coll.gather_replicated(cov.Ut, 2, mg))
+        return state_to(state._replace(cov=cov), "cpu")
+
+    def __call__(self, denoise, x_t, y, sigma, state):
+        rec = dict(x_t=x_t.cpu(), sigma=sigma, state=self._whole(state)) \
+            if self.keep_inputs else {}
+        sync(self.dev)
+        c0, b0 = self.coll.counts["calls"], self.coll.counts["bytes"]
+        t0 = time.perf_counter()
+        x0, self.state = self.mech(denoise, x_t, y, sigma, state)
+        sync(self.dev)
+        rec.update(ms=(time.perf_counter() - t0) * 1e3, x0=x0.cpu().numpy(),
+                   niter=self.state.cg_niter, collectives=self.coll.counts["calls"] - c0,
+                   bytes=self.coll.counts["bytes"] - b0)
+        self.calls.append(rec)
+        return x0, self.state
+
+
+def gn_shard_shapes(model, batch: int, res: int) -> Counter:
+    """(shard NHWC shape, dtype, apply_silu) -> calls over one no-grad
+    sharded forward (every rank of the group runs it)."""
+    seen = Counter()
+
+    def hook(mod, inputs):
+        x = inputs[0]
+        seen[(tuple(x.permute(0, 2, 3, 1).shape), x.dtype, mod.apply_silu)] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, GroupNorm32)]
+    with torch.no_grad():
+        model(torch.zeros((batch, 3, res, res), device="cuda"),
+              torch.full((batch,), 500.0, device="cuda"))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def check_gn_sharded(shape, dtype, silu, mg, reps=10) -> dict:
+    """K1's sharded path (stats entry, the gather, the apply entry that
+    merges) against ``groupnorm_silu_sharded_plain`` on this rank's rows of
+    one whole tensor, drawn alike on every rank; both ranks time it
+    together, or with ``reps=0`` only check it. Limit as ``check_gn``'s."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    n, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(int(np.prod(shape)) + c)
+    full = (torch.randn((n, h * mg.model_size, w, c), generator=gen, device="cuda") * 2
+            + 0.5).to(dtype)
+    x = full[:, mg.model_index * h:(mg.model_index + 1) * h].contiguous()
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    y = gn.groupnorm_silu_sharded_cuda(x, g, b, 32, 1e-5, silu, mg)
+    want = gn.groupnorm_silu_sharded_plain(x, g, b, 32, 1e-5, silu, mg)
+    torch.cuda.synchronize()
+    err = float((y.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        limit = 1e-5 * max(1.0, float(want.abs().max()))
+    else:
+        limit = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    if not err <= limit:
+        raise AssertionError(f"sharded groupnorm {shape} {dtype}: max abs err {err} > {limit}")
+    row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), silu=silu,
+               max_abs_err=err, limit=limit)
+    if not reps:
+        return row
+    parts = coll.gather_replicated(gn.shard_stats_cuda(x)[None], 0, mg).contiguous()
+    row.update(
+        full=full, g=g, b=b,
+        ms=time_ms(lambda: gn.groupnorm_silu_sharded_cuda(x, g, b, 32, 1e-5, silu, mg), reps),
+        stats_ms=time_ms(lambda: gn.shard_stats_cuda(x), reps),
+        apply_ms=time_ms(lambda: gn.shard_apply_cuda(x, parts, g, b, 32, 1e-5, silu), reps),
+        plain_ms=time_ms(lambda: gn.groupnorm_silu_sharded_plain(x, g, b, 32, 1e-5, silu, mg),
+                         max(2, reps // 4)),
+        bytes_ms=(2 * x.numel() * x.element_size() + 2 * c * 4) / HBM_BYTES_PER_S * 1e3,
+        ops_ms=GN_FLOPS_PER_ELEM[silu] * x.numel() / F32_FLOP_PER_S * 1e3)
+    return row
+
+
+def model_axis_rank(outdir: Path, seed: int, dev: str = "cuda", setup: Path = None,
+                    batch: int = FULL_BATCH, steps: int = MA_STEPS) -> None:
+    """Phase 7a, one rank of ``torch.distributed.run --nproc_per_node=2``:
+    the 256 px bf16 UNet with remat and the height shard, Free Hunch with
+    the d-sharded state (gaussian blur 61x61 std 3, sigma_s 0.1, the DCT
+    prior, capacity 34, vjp guidance, EDM Heun), batch 8, ``MA_STEPS``
+    steps; before it, on the card, K1's sharded path at every distinct
+    shard shape; after it, on rank 0 alone, the same steps unsharded with
+    the same weights and inputs, and the unsharded K1 at the same whole
+    shapes. Writes ``rank<r>.pt``. ``dev``, ``setup`` (default
+    ``SETUP_256``), ``batch`` and ``steps`` let the CPU rehearse it."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    from free_hunch_tpu_torch.parallel import dist, mesh
+    dist.init()
+    mg = mesh.make_model_groups(MA_MESH)
+    rank = dist.get_rank()
+    card = torch.device(dev).type == "cuda"
+    setup = SETUP_256 if setup is None else setup
+    model, model_args = loading.load_model(
+        str(CKPT_256), str(setup), dtype=torch.bfloat16, init_random_if_missing=True,
+        rng_seed=seed, remat=True, device=dev, model_group=mg)
+    digest = hashlib.sha256()
+    for t in model.state_dict().values():
+        digest.update(t.detach().float().cpu().numpy().tobytes())
+    hashes = dist.all_gather_object(digest.hexdigest()[:16])
+    res = model_args["image_size"]
+    out = dict(rank=rank, weights=hashes, group=(mg.data_index, mg.model_index), gn_rows=[],
+               gn_rows_driver=[])
+
+    if card:  # K1's sharded path at every distinct shard shape of one forward
+        rows = [(calls, check_gn_sharded(shape, dtype, silu, mg))
+                for (shape, dtype, silu), calls in sorted(
+                    gn_shard_shapes(model, batch, res).items(),
+                    key=lambda kv: -np.prod(kv[0][0]))]
+        dist.barrier()
+        if rank == 0:  # the unsharded K1 at the same whole shapes, this rank alone
+            for _, r in rows:
+                r["unsharded_ms"] = time_ms(lambda: gn.groupnorm_silu_cuda(
+                    r["full"], r["g"], r["b"], 32, 1e-5, r["silu"]), 10)
+        dist.barrier()
+        out["gn_rows"] = [(calls, {k: v for k, v in r.items() if k not in ("full", "g", "b")})
+                          for calls, r in rows]
+        del rows
+        # checked, not timed: every distinct shard shape of 7b's batch, whose
+        # plan cuts each sample into other chunks
+        out["gn_rows_driver"] = [
+            check_gn_sharded(shape, dtype, silu, mg, reps=0)
+            for shape, dtype, silu in gn_shard_shapes(model, MA_DRIVER_IMAGES, res)]
+
+    # the main path
+    precond = loading.wrap_precond(model, model_args)
+    op = slice_operator("gaussian_blur", res, dev, seed)
+    xs, s0 = schedule(precond, steps)
+    gen = torch.Generator().manual_seed(seed)
+    cond = (torch.rand((batch, 3, res, res), generator=gen) * 2 - 1).to(dev)
+    y = op.forward(cond, generator=torch.Generator().manual_seed(seed + 1))
+    noise = torch.randn((batch, 3, res, res), generator=gen).to(dev)
+    calls = Counter()
+    hooks = [m.register_forward_pre_hook(lambda mod, a: calls.update(["gn"]))
+             for m in model.modules() if isinstance(m, GroupNorm32)]
+    mech = ShardedCallRecorder(free_hunch(op, res, MA_CAP, "dct_diagonal",
+                                          model_group=mg),
+                               dev, keep_inputs=True)
+    sync(dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    gn.sharded_launches.update(stats=0, apply=0)
+    zero_counts()
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    x, _, diag = edm.sample_loop(precond, mech, noise, y, xs, sigma0_scaled=s0,
+                                 collect_diagnostics=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    cov = mech.state.cov
+    inputs = [{k: c.pop(k) for k in ("x_t", "sigma", "state")} for c in mech.calls]
+    out.update(wall=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0,
+               launches=dict(gn.sharded_launches), launches_unsharded=gn.launches,
+               hooks=calls["gn"], calls=mech.calls, x=x.cpu().numpy(),
+               niter=diag["cg_niter"].numpy(),
+               cov_bytes={k: getattr(cov, k).numel() * getattr(cov, k).element_size()
+                          for k in ("diag", "Ut", "M")},
+               cov_shape=tuple(cov.Ut.shape), collectives=dict(coll.counts))
+    state = model.state_dict()
+    del model, precond, mech
+    dist.barrier()
+    if rank == 0:  # the same steps unsharded, this rank alone on the card
+        with torch.device(dev):
+            ref = create_model(dtype=torch.bfloat16, remat=True, **model_args)
+        ref.load_state_dict(state)
+        del state
+        ref.eval().requires_grad_(False)
+        pre_ref = loading.wrap_precond(ref, model_args)
+        # teacher-forced: each guided call from the sharded run's inputs
+        forced = free_hunch(op, res, MA_CAP, "dct_diagonal")
+        out["forced"] = []
+        for c in inputs:
+            x0, st = forced(pre_ref, c["x_t"].to(dev), y, c["sigma"], state_to(c["state"], dev))
+            out["forced"].append(dict(x0=x0.cpu().numpy(), niter=st.cg_niter))
+        del inputs
+        # free-running
+        rmech = ShardedCallRecorder(free_hunch(op, res, MA_CAP, "dct_diagonal"), dev)
+        sync(dev)
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xr, _, rdiag = edm.sample_loop(pre_ref, rmech, noise, y, xs, sigma0_scaled=s0,
+                                       collect_diagnostics=True)
+        sync(dev)
+        out.update(ref_wall=time.perf_counter() - t0, ref_calls=rmech.calls,
+                   ref_x=xr.cpu().numpy(), ref_niter=rdiag["cg_niter"].numpy(),
+                   ref_peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0,
+                   ref_cov_bytes={k: getattr(rmech.state.cov, k).numel() * 4
+                                  for k in ("diag", "Ut", "M")})
+    torch.save(out, outdir / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy()
+
+
+def model_axis_failures(ranks: list) -> tuple:
+    """(readings, what breaks 7a's limits) from the ranks' outputs: each
+    guided call's x0 against the unsharded mechanism's from the same inputs
+    and state (relative RMS within ``MA_CALL_REL_RMS``) with equal CG
+    counts, the free-running final samples (within ``MA_FINAL_REL_RMS``),
+    equal weights and x0 on both ranks, a finite sample, and on each rank
+    K1's stats and apply launches equal to the GroupNorm32 hooks, with no
+    unsharded launch. The free-running calls are read, not held."""
+    r0 = ranks[0]
+    errs = [rel_rms_err(c["x0"], rc["x0"]) for c, rc in zip(r0["calls"], r0["forced"])]
+    free = [rel_rms_err(c["x0"], rc["x0"]) for c, rc in zip(r0["calls"], r0["ref_calls"])]
+    final = rel_rms_err(r0["x"], r0["ref_x"])
+    niter = [c["niter"] for c in r0["calls"]]
+    ref_niter = [c["niter"] for c in r0["forced"]]
+    same = all(np.array_equal(c["x0"], c1["x0"])
+               for r in ranks[1:] for c, c1 in zip(r0["calls"], r["calls"]))
+    bad = [f"call {i}: x0 relative RMS {e:.3g}" for i, e in enumerate(errs)
+           if not e <= MA_CALL_REL_RMS]
+    if not final <= MA_FINAL_REL_RMS:
+        bad.append(f"final sample relative RMS {final:.3g}")
+    if niter != ref_niter or len(errs) != len(r0["calls"]) or \
+            len(free) != len(r0["calls"]):
+        bad.append(f"CG niter {niter} vs {ref_niter}")
+    if len(set(r0["weights"])) != 1:
+        bad.append(f"the ranks' weights differ: {r0['weights']}")
+    if not same or not np.isfinite(r0["x"]).all():
+        bad.append("the ranks' x0 differ, or the sample is not finite")
+    for r in ranks:
+        if not (0 < r["launches"]["stats"] == r["launches"]["apply"] == r["hooks"]) or \
+                r["launches_unsharded"] != 0:
+            bad.append(f"rank {r['rank']}: K1 sharded launches {r['launches']}, hooks "
+                       f"{r['hooks']}, unsharded {r['launches_unsharded']}")
+    return dict(errs=errs, free=free, final=final, niter=niter, ref_niter=ref_niter,
+                free_niter=[c["niter"] for c in r0["ref_calls"]], same=same), bad
+
+
+def model_axis_sharded_phase(seed: int, smi: str) -> dict:
+    """Phase 7a: ``model_axis_rank`` under ``torch.distributed.run
+    --nproc_per_node=2`` (gloo, both ranks on the one card); the limits and
+    the K1 entry. Returns the kernels-line entry of K1's sharded path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={MA_WORLD}", str(ROOT / "chip_smoke.py"),
+               f"--model-axis-rank={tmp}", f"--seed={seed}"]
+        env = dict(os.environ, PYTHONPATH=python_path(ROOT), OMP_NUM_THREADS="4")
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=MA_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"7a: exit {run.returncode}\n{run.stdout[-4000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(MA_WORLD)]
+    r0 = ranks[0]
+    read, bad = model_axis_failures(ranks)
+    say(f"model axis 7a, torch.distributed.run --nproc_per_node={MA_WORLD} ({MA_MESH}, gloo, "
+        f"both ranks on the one card): 256 px bf16 UNet with remat, height-sharded; Free Hunch "
+        f"with the d-sharded state; gaussian blur; batch {FULL_BATCH}, {MA_STEPS} Heun steps "
+        f"({len(r0['calls'])} guided calls), on {smi}; the command {wall:.3f} s")
+    say(f"  weights hash {r0['weights']}; the ranks' x0 bitwise equal: {read['same']}")
+    say(f"  per guided call, sharded against the unsharded mechanism from the same inputs "
+        f"and state: x0 relative RMS {[float(f'{e:.3g}') for e in read['errs']]} (limit "
+        f"{MA_CALL_REL_RMS:g}); CG niter {read['niter']} vs {read['ref_niter']}")
+    say(f"  free-running, sharded against unsharded: x0 relative RMS per call "
+        f"{[float(f'{e:.3g}') for e in read['free']]}, CG niter {read['free_niter']}; final "
+        f"sample {read['final']:.3g} (limit {MA_FINAL_REL_RMS:g})")
+    for r in ranks:
+        say(f"  rank {r['rank']}: wall per guided call "
+            f"{[round(c['ms'], 3) for c in r['calls']]} ms (run {r['wall']:.3f} s); peak "
+            f"{r['peak_gib']:.3f} GiB; covariance state {r['cov_bytes']} bytes (Ut "
+            f"{r['cov_shape']}); collectives per call {[c['collectives'] for c in r['calls']]}, "
+            f"bytes sent per call {[c['bytes'] for c in r['calls']]}; K1 sharded launches "
+            f"{r['launches']} (hooks {r['hooks']}), unsharded K1 launches "
+            f"{r['launches_unsharded']}")
+    say(f"  unsharded on rank 0 alone: wall per guided call "
+        f"{[round(c['ms'], 3) for c in r0['ref_calls']]} ms (run {r0['ref_wall']:.3f} s); "
+        f"peak {r0['ref_peak_gib']:.3f} GiB; covariance state {r0['ref_cov_bytes']} bytes")
+    rows = r0["gn_rows"]
+    e = sum_entry(GNS_ENTRY, rows, ("ms", "stats_ms", "apply_ms", "plain_ms", "unsharded_ms"))
+    say(f"  K1 sharded path at the {len(rows)} distinct shard shapes of one forward (calls x "
+        f"ms; both ranks at once):")
+    for calls, r in rows:
+        say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={r['silu']}: err "
+            f"{r['max_abs_err']:.3g} (limit {r['limit']:.3g}) sharded {r['ms']:.4f} (stats "
+            f"{r['stats_ms']:.4f}, apply {r['apply_ms']:.4f}) plain {r['plain_ms']:.4f} "
+            f"unsharded K1 at the whole shape {r['unsharded_ms']:.4f} bound "
+            f"{max(r['bytes_ms'], r['ops_ms']):.4f}")
+    say(f"  sum over one forward's {sum(c for c, _ in rows)} calls: sharded {e['ms']:.3f} ms "
+        f"(stats entry {e['stats_ms']:.3f}, apply entry {e['apply_ms']:.3f}), plain "
+        f"{e['plain_ms']:.3f}, the unsharded K1 at the whole shapes {e['unsharded_ms']:.3f}, "
+        f"bound {e['bound_ms']:.3f} ms ({e['bound_by']})")
+    driver_rows = [r for rk in ranks for r in rk["gn_rows_driver"]]
+    err_driver = max(r["max_abs_err"] for r in driver_rows)
+    say(f"  K1 sharded path at the {len(r0['gn_rows_driver'])} distinct shard shapes of 7b's "
+        f"batch of {MA_DRIVER_IMAGES}, checked on both ranks: max abs err {err_driver:.3g} "
+        f"(largest over the shapes of err / limit "
+        f"{max(r['max_abs_err'] / r['limit'] for r in driver_rows):.3g})")
+    if bad:
+        raise AssertionError(f"7a: {bad}")
+    entry = {k: e[k] for k in list(GNS_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by"]}
+    entry.update(launches=r0["launches"]["stats"], launches_apply=r0["launches"]["apply"],
+                 library_ms=None, stats_ms=e["stats_ms"], apply_ms=e["apply_ms"],
+                 unsharded_ms=e["unsharded_ms"],
+                 **{f"max_abs_err_batch_{MA_DRIVER_IMAGES}": err_driver})
+    return entry
+
+
+def no_halo(x: torch.Tensor, mg, dim: int = 2) -> torch.Tensor:
+    """The planted fault of phase 7's controls, in place of
+    ``parallel/collectives.py::halo_rows``: zero rows where the
+    neighbours' halo rows belong."""
+    z = torch.zeros_like(x.narrow(dim, 0, 1))
+    return torch.cat([z, x, z], dim=dim)
+
+
+class CallKeeper:
+    """Pass-through guidance mechanism that appends each call's first
+    denoiser output (the UNet's, before any guidance) to ``kept["d"]``, its
+    x0 to ``kept["x0"]`` (f32 on the host) and its CG count to
+    ``kept["niter"]``."""
+
+    def __init__(self, mech, kept: dict):
+        self.mech, self.kept = mech, kept
+
+    def init_state(self, batch, img_shape):
+        return self.mech.init_state(batch, img_shape)
+
+    def __call__(self, denoise, x_t, y, sigma, state):
+        outs = []
+
+        def keep(*a, **k):
+            res = denoise(*a, **k)
+            outs.append(res[0].detach().float().cpu())
+            return res
+
+        x0, state = self.mech(keep, x_t, y, sigma, state)
+        self.kept["d"].append(outs[0])
+        self.kept["x0"].append(x0.float().cpu())
+        self.kept["niter"].append(torch.tensor(getattr(state, "cg_niter", 0)))
+        return x0, state
+
+
+@contextlib.contextmanager
+def keeping_samples(kept: dict):
+    """Keep the guided calls (``CallKeeper``) and each batch's final sample
+    (``kept["x"]``) of the Evaluator's ``sample_loop`` in this process; the
+    rank probe enters it in a rank under ``FH_SMOKE_SAMPLES``."""
+    orig = teval.sample_loop
+
+    def keep(denoise, mech, *a, **k):
+        res = orig(denoise, CallKeeper(mech, kept), *a, **k)
+        kept["x"].append(res[0].float().cpu())
+        return res
+
+    teval.sample_loop = keep
+    try:
+        yield kept
+    finally:
+        teval.sample_loop = orig
+
+
+def model_axis_driver_world(tmp: Path, argv: list, label: str, no_halo: bool = False) -> dict:
+    """``torch.distributed.run --nproc_per_node=2 -m
+    free_hunch_tpu_torch.generate_conditional argv --mesh_shape=MA_MESH``
+    under the rank probe, in ``tmp / label``; with ``no_halo`` every 3x3
+    conv of the torso takes zero rows in place of its neighbours' halos (a
+    planted fault). Its results, probes, journals, each rank's guided
+    calls' x0 and final samples (``samples``: one dict a rank) and wall."""
+    d = tmp / label
+    for sub in ("probe", "site"):
+        (d / sub).mkdir(parents=True)
+    (d / "site" / "sitecustomize.py").write_text(RANK_PROBE)
+    out = d / "out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={MA_WORLD}", "-m", "free_hunch_tpu_torch.generate_conditional",
+           *argv, f"--outdir={out}", f"--mesh_shape={MA_MESH}"]
+    env = dict(os.environ, PYTHONPATH=python_path(d / "site", ROOT),
+               FH_SMOKE_PROBE=str(d / "probe"), FH_SMOKE_SAMPLES="1", OMP_NUM_THREADS="4")
+    if no_halo:
+        env["FH_SMOKE_NO_HALO"] = "1"
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=MA_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"7b {label}: exit {run.returncode}\n{run.stdout[-4000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    results, _ = check_artifacts(out, f"7b {label}", MA_DRIVER_IMAGES, 1, fid=False)
+    return dict(
+        results=results, wall=wall,
+        probes=[json.loads((d / "probe" / f"rank{r}.json").read_text()) for r in range(MA_WORLD)],
+        journals=sorted(p.name for p in out.glob("metrics_rank*.jsonl")),
+        samples=[{k: [t.numpy() for t in v]
+                  for k, v in torch.load(d / "probe" / f"rank{r}_x.pt").items()}
+                 for r in range(MA_WORLD)])
+
+
+def model_axis_driver_phase(seed: int, smi: str, control: bool = False) -> dict:
+    """Phase 7b: ``torch.distributed.run --nproc_per_node=2 -m
+    free_hunch_tpu_torch.generate_conditional --mesh_shape=data:1,model:2``
+    on two bundled images, 5 Heun steps, batch 2; then the same command as
+    a world of one. With ``control`` also the model-axis run without halos,
+    which must break the limits. Returns each rank's K1 sharded launches."""
+    argv = driver_args(seed) + [
+        "--conditioning_mechanism=online_covariance", "--image_base_covariance=dct_diagonal",
+        "--operator_name=gaussian_blur", "--kernel_size=61", "--intensity=3.0",
+        f"--num_steps={MA_DRIVER_STEPS}", "--cov_capacity=auto",
+        f"--total_images={MA_DRIVER_IMAGES}", f"--batch_size={MA_DRIVER_IMAGES}",
+        f"--num_other_images_to_save={MA_DRIVER_IMAGES}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ma = model_axis_driver_world(tmp, argv, "model_axis")
+        t0 = time.perf_counter()
+        with keeping_samples({"d": [], "x0": [], "x": [], "niter": []}) as kept:
+            one = cmdline(argv + [f"--outdir={tmp / 'one'}"], device="cuda")
+        wall_one = time.perf_counter() - t0
+        one["samples"] = {k: [t.numpy() for t in v] for k, v in kept.items()}
+        fault = model_axis_driver_world(tmp, argv, "no_halo", no_halo=True) if control else None
+    results, probes = ma["results"], ma["probes"]
+    read = model_axis_driver_readings(ma, one)
+    say(f"model axis 7b, torch.distributed.run --nproc_per_node={MA_WORLD} generate_conditional "
+        f"--mesh_shape={MA_MESH}, {MA_DRIVER_IMAGES} bundled images, {MA_DRIVER_STEPS} Heun "
+        f"steps, batch {MA_DRIVER_IMAGES}, on {smi}:")
+    say(f"  results: images {results['images']}, PSNR {results['psnr']:.4f}, SSIM "
+        f"{results['ssim']:.4f}, LPIPS {results['lpips']:.4f} (proxy); journals "
+        f"{ma['journals']}; the command {ma['wall']:.3f} s")
+    say(f"  per rank: totals {[p.get('totals') for p in probes]}; peak "
+        f"{[round(p['peak_gib'], 3) for p in probes]} GiB; K1 sharded launches "
+        f"{[p['sharded'] for p in probes]} (hooks {[p['hooks'] for p in probes]}); unsharded "
+        f"K1 {[p['launches'] for p in probes]}")
+    say(f"  world of one: PSNR {one['psnr']:.4f}, SSIM {one['ssim']:.4f}, {wall_one:.3f} s; "
+        f"|dPSNR| {read['d_psnr']:.4g} dB (limit {MA_PSNR_ABS}), |dSSIM| {read['d_ssim']:.4g} "
+        f"(limit {MA_SSIM_ABS})")
+    say(f"  against the world of one's, relative RMS: the first guided call's denoiser "
+        f"output, from equal inputs, {read['denoised']:.3g} (limit {MA_DENOISED_REL_RMS:g}); "
+        f"x0 per guided call {[float(f'{e:.3g}') for e in read['calls']]}; final samples "
+        f"{read['final']:.4g}; CG niter {read['niter']}; the ranks' outputs bitwise equal: "
+        f"{read['same']}")
+    bad = model_axis_driver_failures(results, probes, ma["journals"], one, read)
+    if fault is not None:
+        fread = model_axis_driver_readings(fault, one)
+        fbad = model_axis_driver_failures(fault["results"], fault["probes"], fault["journals"],
+                                          one, fread)
+        say(f"  control, the same command with zero rows for every halo: |dPSNR| "
+            f"{fread['d_psnr']:.4g} dB, |dSSIM| {fread['d_ssim']:.4g}, the first denoiser "
+            f"output {fread['denoised']:.3g}, x0 per guided call "
+            f"{[float(f'{e:.3g}') for e in fread['calls']]}, final samples "
+            f"{fread['final']:.4g}; the limits it breaks: {fbad}; the command "
+            f"{fault['wall']:.3f} s")
+        if not any("denoiser output" in b for b in fbad):
+            bad.append("the control without halos reads inside the denoiser's limit")
+    if bad:
+        raise AssertionError(f"7b: {bad}")
+    return {f"launches_driver_model_axis_rank{p['rank']}": p["sharded"]["stats"] for p in probes}
+
+
+def model_axis_driver_readings(ma: dict, one: dict) -> dict:
+    """7b's distances from the world of one: |dPSNR|, |dSSIM|, and the
+    relative RMS of rank 0's first denoiser output, x0 at each guided call
+    and final samples from the world of one's; and whether the ranks'
+    outputs are bitwise equal."""
+    s0, s1 = ma["samples"][0], one["samples"]
+    return dict(d_psnr=abs(ma["results"]["psnr"] - one["psnr"]),
+                d_ssim=abs(ma["results"]["ssim"] - one["ssim"]),
+                denoised=rel_rms_err(s0["d"][0], s1["d"][0]),
+                calls=[rel_rms_err(a, b) for a, b in zip(s0["x0"], s1["x0"])],
+                final=rel_rms_err(np.concatenate(s0["x"]), np.concatenate(s1["x"])),
+                n_calls=(len(s0["x0"]), len(s1["x0"])),
+                niter=([int(n) for n in s0["niter"]], [int(n) for n in s1["niter"]]),
+                same=all(len(r["x0"]) == len(s0["x0"]) and
+                         all(np.array_equal(a, b) for k in ("d", "x0", "x")
+                             for a, b in zip(r[k], s0[k])) for r in ma["samples"][1:]))
+
+
+def model_axis_driver_failures(results: dict, probes: list, journals: list, one: dict,
+                               read: dict) -> list:
+    """What breaks 7b's limits: each image counted once, one journal, the
+    ranks' totals equal and finite, their outputs bitwise equal, as many
+    guided calls as the world of one (``one``) and the first call's
+    denoiser output, from the same inputs, within ``MA_DENOISED_REL_RMS``
+    of its,
+    PSNR and SSIM within ``MA_PSNR_ABS`` and ``MA_SSIM_ABS`` of its, and
+    each rank's K1 stats and apply launches equal to its GroupNorm32
+    hooks."""
+    totals = [p.get("totals") for p in probes]
+    bad = []
+    if results["images"] != MA_DRIVER_IMAGES or journals != ["metrics_rank00.jsonl"]:
+        bad.append(f"images {results['images']}, journals {journals}")
+    if any(t != totals[0] for t in totals) or \
+            not all(np.isfinite(v) for v in totals[0].values()):
+        bad.append(f"the ranks' totals {totals}")
+    if not read["same"]:
+        bad.append("the ranks' outputs differ")
+    if read["n_calls"][0] != read["n_calls"][1]:
+        bad.append(f"guided calls {read['n_calls']}")
+    if not read["denoised"] <= MA_DENOISED_REL_RMS:
+        bad.append(f"first denoiser output relative RMS {read['denoised']}")
+    if not (read["d_psnr"] <= MA_PSNR_ABS and read["d_ssim"] <= MA_SSIM_ABS):
+        bad.append(f"|dPSNR| {read['d_psnr']}, |dSSIM| {read['d_ssim']}")
+    for p in probes:
+        sh = p["sharded"]
+        if not (0 < sh["stats"] == sh["apply"] == p["hooks"]) or p["launches"] != 0:
+            bad.append(f"rank {p['rank']}: K1 sharded launches {sh}, hooks {p['hooks']}, "
+                       f"unsharded {p['launches']}")
+    return bad
+
+
+def model_axis_phase(seed: int, smi: str, control: bool = False) -> dict:
+    """Phase 7 (7a, then 7b; ``control``: 7b's run without halos too); K1's
+    sharded kernels-line entry."""
+    entry = model_axis_sharded_phase(seed, smi)
+    entry.update(model_axis_driver_phase(seed, smi, control))
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--steps", type=int, default=30)
-    ap.add_argument("--runs", type=int, default=2, help="sampling runs of the bf16 "
+    ap.add_argument("--steps", type=int, default=10, help="Heun steps of the 256 px "
+                    "slices and the driver (DDNM+ takes twice as many); 10 keeps the "
+                    "whole script well inside its time limit, the paper samples 30")
+    ap.add_argument("--runs", type=int, default=1, help="sampling runs of the bf16 "
                     "slice; the first is counted, every one is timed (the int8 slice "
                     "runs once)")
     ap.add_argument("--seed", type=int, default=0)
@@ -2818,6 +3489,10 @@ def main(argv=None) -> int:
                     "then kill and resume; no result lines")
     ap.add_argument("--vae", action="store_true", help="phase 6 alone: the SD-VAE at full "
                     "width on the bundled images, K1 at its norms; no result lines")
+    ap.add_argument("--model-axis", action="store_true", help="phase 7 alone: the model axis "
+                    "(data:1,model:2) as two ranks on the card, the sharded guided path "
+                    "against the unsharded one and the driver; no result lines")
+    ap.add_argument("--model-axis-rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -2829,6 +3504,10 @@ def main(argv=None) -> int:
         print(f"chip_smoke: drives the port beside it, but imported "
               f"{fht.__file__}", file=sys.stderr)
         return 2
+
+    if args.model_axis_rank:  # one rank of phase 7a, started by torch.distributed.run
+        model_axis_rank(Path(args.model_axis_rank), args.seed)
+        return 0
 
     t_start = time.perf_counter()
     smi = card_facts()
@@ -2855,6 +3534,10 @@ def main(argv=None) -> int:
         vae_phase(args.seed, smi, layout=True)
         say(f"chip_smoke --vae wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    if args.model_axis:
+        model_axis_phase(args.seed, smi, control=True)
+        say(f"chip_smoke --model-axis wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
     t0 = time.perf_counter()
     model, model_args = loading.load_model(
         str(CKPT_256), str(SETUP_256), dtype=torch.bfloat16,
@@ -2873,23 +3556,31 @@ def main(argv=None) -> int:
         ddnm_draws_phase(model, model_args, 2 * args.steps, args.seed)
         say(f"chip_smoke --ddnm wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
+    PHASE_WALLS["1 card and build"] = round(time.perf_counter() - t_start, 1)
     res = model_args["image_size"]
-    gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"),
-                               {n: gn_shapes_of_forward(model, n, res, "cuda")
-                                for n in driver_batch_sizes() - {args.batch}})
-    reference_phase(args.seed)
-    mechanism_reference_phase(args.seed)
-    ddnm_reference_phase(args.seed)
-    launches, walls = slice_phase(model, model_args, args.batch, args.steps, args.runs,
-                                  args.seed, "bf16")
+    with timed_phase("2 K1 kernels"):
+        gn_entry = gn_kernel_phase(gn_shapes_of_forward(model, args.batch, res, "cuda"),
+                                   {n: gn_shapes_of_forward(model, n, res, "cuda")
+                                    for n in driver_batch_sizes() - {args.batch}})
+    with timed_phase("3 reference"):
+        reference_phase(args.seed)
+    with timed_phase("3b mechanism reference"):
+        mechanism_reference_phase(args.seed)
+    with timed_phase("3c DDNM+ and variant reference"):
+        ddnm_reference_phase(args.seed)
+    with timed_phase("4 bf16 slice"):
+        launches, walls = slice_phase(model, model_args, args.batch, args.steps, args.runs,
+                                      args.seed, "bf16")
     say(f"bf16 sampling wall time per run (s): {[round(w, 3) for w in walls]} on {smi}")
     gn_entry["launches"] = launches["groupnorm_silu"]
-    for op_name, op_launches in mechanism_phases(model, model_args, args).items():
-        gn_entry[f"launches_{op_name}"] = op_launches["groupnorm_silu"]
+    with timed_phase("4b-4d mechanisms"):
+        for op_name, op_launches in mechanism_phases(model, model_args, args).items():
+            gn_entry[f"launches_{op_name}"] = op_launches["groupnorm_silu"]
     # DDNM+ doubles the Heun step count, as generate_conditional.py does
-    for op_name, n in ddnm_phase(model, model_args, args.batch, 2 * args.steps,
-                                 args.seed).items():
-        gn_entry[f"launches_ddnm_{op_name}"] = n
+    with timed_phase("4e DDNM+"):
+        for op_name, n in ddnm_phase(model, model_args, args.batch, 2 * args.steps,
+                                     args.seed).items():
+            gn_entry[f"launches_ddnm_{op_name}"] = n
     del model
     torch.cuda.empty_cache()
 
@@ -2899,23 +3590,34 @@ def main(argv=None) -> int:
         rng_seed=args.seed, remat=True, quant="int8", fused_gn_quant=True)
     torch.cuda.synchronize()
     say(f"256 px fused-int8 UNet built in {time.perf_counter() - t0:.2f} s")
-    k2_entry, k3_entry = int8_kernel_phase(*int8_shapes_of_forward(qmodel, args.batch, res,
-                                                                   "cuda"))
-    int8_reference_phase(args.seed)
-    qlaunches, qwalls = slice_phase(qmodel, model_args, args.batch, args.steps, 1,
-                                    args.seed, "fused int8")
+    with timed_phase("2 K2 and K3 kernels"):
+        k2_entry, k3_entry = int8_kernel_phase(*int8_shapes_of_forward(qmodel, args.batch,
+                                                                       res, "cuda"))
+    with timed_phase("3 int8 reference"):
+        int8_reference_phase(args.seed)
+    with timed_phase("4 int8 slice"):
+        qlaunches, qwalls = slice_phase(qmodel, model_args, args.batch, args.steps, 1,
+                                        args.seed, "fused int8")
     say(f"fused int8 sampling wall time per run (s): {[round(w, 3) for w in qwalls]} "
         f"on {smi}")
     k2_entry["launches"] = qlaunches["gn_silu_quant"]
     k3_entry["launches"] = qlaunches["int8_conv"]
     del qmodel
     torch.cuda.empty_cache()
-    driver_reference_phase(args.seed)
-    for run_name, n in driver_phase(args.seed, args.steps, smi).items():
-        gn_entry[f"launches_{run_name}"] = n
-    gn_entry["launches_driver_world2"] = world2_phase(args.seed, args.steps, smi)
-    kill_resume_phase(args.seed, args.steps, smi)
-    gn_entry.update(vae_phase(args.seed, smi))
+    with timed_phase("5a driver reference"):
+        driver_reference_phase(args.seed)
+    with timed_phase("5b-5c driver"):
+        for run_name, n in driver_phase(args.seed, args.steps, smi).items():
+            gn_entry[f"launches_{run_name}"] = n
+    with timed_phase("5d world of two"):
+        gn_entry["launches_driver_world2"] = world2_phase(args.seed,
+                                                          min(args.steps, MP_STEPS), smi)
+    with timed_phase("5e kill and resume"):
+        kill_resume_phase(args.seed, min(args.steps, MP_STEPS), smi)
+    with timed_phase("6 VAE"):
+        gn_entry.update(vae_phase(args.seed, smi))
+    with timed_phase("7 model axis"):
+        gns_entry = model_axis_phase(args.seed, smi)
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
@@ -2928,11 +3630,15 @@ def main(argv=None) -> int:
                     ("groupnorm_silu", gn_entry["launches_driver_world2"]),
                     ("groupnorm_silu", gn_entry["launches_vae"]),
                     ("gn_silu_quant", k2_entry["launches"]),
-                    ("int8_conv", k3_entry["launches"])):
+                    ("int8_conv", k3_entry["launches"]),
+                    ("groupnorm_silu_sharded", gns_entry["launches"]),
+                    *(("groupnorm_silu_sharded", v) for k, v in gns_entry.items()
+                      if k.startswith("launches_driver_model_axis"))):
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its main path")
+    say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")
     say(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [gn_entry, k2_entry, k3_entry]}))
+    say(json.dumps({"kernels": [gn_entry, k2_entry, k3_entry, gns_entry]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

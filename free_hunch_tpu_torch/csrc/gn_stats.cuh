@@ -266,8 +266,11 @@ __global__ void __launch_bounds__(1024)
 
 // Inside a block of (L lanes, G) threads for sample n: merge the P chunk
 // partials of each group, lane l taking chunks l, l + L, ... and lane 0 the
-// L lane results in order, into s_stats[g] = (mean, rstd). scratch: 3 * L * G
-// floats of shared memory. Ends with __syncthreads().
+// L lane results in order, into s_stats[g] = (mean, rstd), or with M2 the
+// merged (mean, M2) itself (a height shard's statistics, which the caller
+// merges across ranks in the same way). scratch: 3 * L * G floats of shared
+// memory. Ends with __syncthreads().
+template <bool M2 = false>
 __device__ __forceinline__ void merge_groups(const float2* __restrict__ partial, float* scratch,
                                              float2* s_stats, int n, int S, int G, int P,
                                              int rows_per_chunk, int cg, float eps) {
@@ -288,8 +291,12 @@ __device__ __forceinline__ void merge_groups(const float2* __restrict__ partial,
       const float* t = scratch + (g * L + k) * 3;
       chan_merge(na, ma, qa, t[0], t[1], t[2]);
     }
-    const float var = qa / na;
-    s_stats[g] = make_float2(ma, 1.f / sqrtf(var + eps));
+    if (M2) {
+      s_stats[g] = make_float2(ma, qa);
+    } else {
+      const float var = qa / na;
+      s_stats[g] = make_float2(ma, 1.f / sqrtf(var + eps));
+    }
   }
   __syncthreads();
 }

@@ -24,9 +24,21 @@ computes on its own card the images ``shard_indices`` strides to it, and
 the totals are gathered at the end: the sample-weighted metric means
 (``_process_mean``), the image and resumed-batch counts (``_process_sum``)
 and the FID moments (``metrics/fid.py::allgather_merge``). Rank 0 writes
-``results.txt`` and ``results.json``; each rank keeps its own journal.
-A ``mesh_shape`` with a data axis above one, or a model axis above one,
-raises (``parallel/mesh.py::check_mesh_shape``).
+``results.txt`` and ``results.json``; each data group keeps its own
+journal.
+
+``mesh_shape=data:N,model:M`` with M > 1 (JAX ``eval.py:104-138``, ``:220``)
+splits the world into N model groups of M ranks
+(``parallel/mesh.py::make_model_groups``): the images are strided over the
+groups and every draw is keyed on the group's data index, so the ranks of
+a group hold the same batch, noise and masks; the UNet shards its height
+and Free Hunch its state's d over the group (the JAX driver's
+``spatial_partition`` and ``cov_partition``; here the group itself). The
+group's model rank 0 writes its PNGs and journal and counts its images
+and FID features in the totals; on resume every rank of the group replays
+that journal. DDNM+ does not take a model axis (it
+bypasses the covariance, and the JAX driver never partitions it), nor
+does the int8 torso: both raise (ROADMAP item 15b).
 
 Fault injection, for the kill-and-resume tests: with the option
 ``fault_kill_after_batches=k`` and the environment variable
@@ -36,6 +48,7 @@ on disk. Either gate alone does nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -58,7 +71,7 @@ from free_hunch_tpu_torch.models.precond import PRECONDS
 from free_hunch_tpu_torch.operators import get_operator
 from free_hunch_tpu_torch.operators import masks as mask_mod
 from free_hunch_tpu_torch.parallel import dist, get_rank, get_world_size
-from free_hunch_tpu_torch.parallel.mesh import check_mesh_shape
+from free_hunch_tpu_torch.parallel.mesh import ITEM_15B, make_model_groups
 from free_hunch_tpu_torch.samplers.edm import (prepare_schedule, required_cov_capacity,
                                                sample_loop)
 from free_hunch_tpu_torch.utils.dynamic import construct_class_by_name
@@ -122,7 +135,14 @@ class Evaluator:
         opts = self.opts
         dist.init()
         self.rank, self.world = get_rank(), get_world_size()
-        check_mesh_shape(opts.get("mesh_shape"))
+        self.mg = make_model_groups(opts.get("mesh_shape"), self.world, self.rank)
+        # the rank that writes its group's images and journal, and whose
+        # images and features count in the totals
+        self.writer = self.mg.model_index == 0
+        if self.mg.sharded and opts.get("conditioning_mechanism") == "ddnm":
+            raise ValueError(f"mesh_shape={opts.get('mesh_shape')!r}: DDNM+ takes no model "
+                             f"axis (it bypasses the covariance; the JAX driver never "
+                             f"partitions it); {ITEM_15B}")
         self.device = dist.rank_device(self.device)
         self.seed = int(opts.get("seed", 0))
 
@@ -141,7 +161,7 @@ class Evaluator:
         self.model, model_args = load_model(
             opts.get("openai_state_dict_path"), opts["openai_setup_path"], dtype=dtype,
             remat=remat, init_random_if_missing=bool(opts.get("allow_random_init", False)),
-            device=self.device, quant=quant)
+            device=self.device, quant=quant, model_group=self.mg)
         self._model_args = model_args
         self._precond_kind = opts.get("iddpm_preconditioning", "linear")
         self.res = model_args.get("image_size", 256)
@@ -166,7 +186,7 @@ class Evaluator:
             return_idx=True, use_labels=bool(model_args.get("class_cond")))
         total = opts.get("total_images") or len(self.dataset)
         total = min(total, len(self.dataset))
-        self.indices = shard_indices(total, self.world, self.rank)
+        self.indices = shard_indices(total, self.mg.data_size, self.mg.data_index)
         self.seeds = list(opts.get("seeds", [0]))
         self.batch_size = max(int(opts.get("batch_size", 1)), 1)
         self.save_videos = bool(opts.get("save_videos", False))
@@ -211,6 +231,7 @@ class Evaluator:
         if mech_name == "online_covariance":
             mkw.update(transport_mean_bound=opts.get("transport_mean_bound"),
                        guidance_update_bound=opts.get("guidance_update_bound"),
+                       model_group=self.mg,
                        init_denoiser_variance=1.0,
                        init_noise_variance=float(self.sigma0_scaled) ** 2,
                        data_dim=3 * self.res * self.res,
@@ -219,9 +240,12 @@ class Evaluator:
         return lambda op: mech_cls(forward_operator=op, **mkw)
 
     def _generator(self, purpose: str, counter: int) -> torch.Generator:
-        """A CPU generator seeded by a pure function of (seed, rank, purpose,
-        counter): the counterpart of the JAX driver's folded keys."""
-        tag = f"{self.seed}/{self.rank}/{_PURPOSES.index(purpose)}/{int(counter)}"
+        """A CPU generator seeded by a pure function of (seed, data index,
+        purpose, counter): the counterpart of the JAX driver's folded keys.
+        The data index is the rank's without a model axis; the ranks of a
+        model group share it, and so draw alike."""
+        tag = (f"{self.seed}/{self.mg.data_index}/{_PURPOSES.index(purpose)}/"
+               f"{int(counter)}")
         s = int.from_bytes(hashlib.sha256(tag.encode()).digest()[:8], "little") >> 1
         return torch.Generator().manual_seed(s)
 
@@ -308,7 +332,8 @@ class Evaluator:
         paths = [os.path.join(outdir, "images", f"{n}.png") for n in batch_id.split("|")]
         if not all(os.path.exists(p) for p in paths):
             return False
-        self._fid_add_u8(np.stack([png.read_png(p).transpose(2, 0, 1) for p in paths]))
+        if self.writer:
+            self._fid_add_u8(np.stack([png.read_png(p).transpose(2, 0, 1) for p in paths]))
         return True
 
     def _cov_capacity(self, opts) -> int:
@@ -378,11 +403,12 @@ class Evaluator:
         n_resumed = 0
         t0 = time.time()
 
-        # resume: each process journals its completed batches, after their
-        # images are saved; --resume=true replays the records instead of
-        # recomputing, and skipped batches advance n_batches like computed
-        # ones, so every later draw stays aligned
-        journal_path = os.path.join(outdir, f"metrics_rank{self.rank:02d}.jsonl")
+        # resume: each data group's writer journals its completed batches,
+        # after their images are saved; --resume=true replays the records
+        # (on every rank of the group) instead of recomputing, and skipped
+        # batches advance n_batches like computed ones, so every later draw
+        # stays aligned
+        journal_path = os.path.join(outdir, f"metrics_rank{self.mg.data_index:02d}.jsonl")
         resume = bool(opts.get("resume", False))
         done = {}
         if resume and os.path.exists(journal_path):
@@ -393,7 +419,9 @@ class Evaluator:
                         done[rec["batch"]] = rec
                     except (ValueError, KeyError):
                         pass  # truncated tail record from a crash
-        with open(journal_path, "a" if resume else "w") as journal, torch.no_grad():
+        journal_file = (open(journal_path, "a" if resume else "w") if self.writer
+                        else contextlib.nullcontext())
+        with journal_file as journal, torch.no_grad():
             for start in range(0, len(self.indices), self.batch_size):
                 idx_chunk = self.indices[start:start + self.batch_size]
                 gidx = [int(i) for i in idx_chunk]
@@ -430,12 +458,12 @@ class Evaluator:
                 y_u8 = self._decode(y).cpu().numpy()
 
                 names = [f"{g:06d}_{s:06d}.png" for g in gidx for s in self.seeds]
-                if opts.get("save_images", True):
+                if self.writer and opts.get("save_images", True):
                     _save_images(gen_u8, os.path.join(outdir, "images"), names)
-                if opts.get("num_other_images_to_save", 0) > 0:
+                if self.writer and opts.get("num_other_images_to_save", 0) > 0:
                     _save_images(cond_rep, os.path.join(outdir, "cond_images"), names)
                     _save_images(y_u8, os.path.join(outdir, "forward_images"), names)
-                if self.save_videos and traj is not None:
+                if self.writer and self.save_videos and traj is not None:
                     frames = self._decode(traj.reshape((-1,) + tuple(traj.shape[2:])))
                     frames = frames.cpu().numpy().reshape(
                         (traj.shape[0], -1) + tuple(frames.shape[1:]))
@@ -446,10 +474,10 @@ class Evaluator:
                 p = float(torch.mean(psnr(ref_f, gen_f)))
                 s = float(torch.mean(ssim(ref_f, gen_f)))
                 lp = self._lpips(ref_f / 127.5 - 1, gen_f / 127.5 - 1)
-                if self._fid is not None:
+                if self._fid is not None and self.writer:
                     self._fid_add_u8(gen_u8)
                 acc.add(gen_u8.shape[0], psnr=p, ssim=s, lpips=lp)
-                if batch_id not in done:  # one record per batch
+                if self.writer and batch_id not in done:  # one record per batch
                     journal.write(json.dumps(dict(batch=batch_id, n=int(gen_u8.shape[0]),
                                                   psnr=p, ssim=s, lpips=float(lp))) + "\n")
                     journal.flush()
@@ -461,16 +489,19 @@ class Evaluator:
                     # a hard crash once this batch's images and journal
                     # record are on disk: a restart with --resume=true
                     # replays the journal and recomputes the rest
-                    journal.close()
+                    if self.writer:
+                        journal.close()
                     logger.warning(f"fault injection: SIGKILL after {kill_after} computed "
                                    f"batches")
                     os.kill(os.getpid(), signal.SIGKILL)
 
         elapsed = time.time() - t0
-        totals = _process_mean(acc.means(), acc.count)
+        # each image counts once: on its group's writer
+        mine = int(self.writer)
+        totals = _process_mean(acc.means(), acc.count * mine)
         totals["time_taken"] = elapsed
-        totals["images"] = _process_sum(len(self.indices) * n_seeds)
-        totals["resumed_batches"] = _process_sum(n_resumed)
+        totals["images"] = _process_sum(len(self.indices) * n_seeds * mine)
+        totals["resumed_batches"] = _process_sum(n_resumed * mine)
         totals["lpips_is_proxy"] = bool(self._lpips.is_proxy)
         if self._fid is not None:
             st = self._fid["mod"].allgather_merge(self._fid["stats"])

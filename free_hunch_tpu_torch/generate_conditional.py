@@ -9,7 +9,10 @@ surface is ``config_default.json``'s (the JAX package's schema), and
 ``--conditioning_mechanism=ddnm`` runs the DDNM+ driver with the step
 count doubled under the Heun solver, as the reference does for parity of
 function evaluations. Rank 0 mirrors its output into ``output.log``.
-``cmdline(argv, device=None)`` runs on the CUDA card (it raises without
+Under ``torchrun --nproc_per_node=N``, ``--mesh_shape=data:1`` makes N
+data-parallel ranks and ``--mesh_shape=data:N/M,model:M`` model groups of
+M ranks that shard the UNet's height and Free Hunch's state
+(``eval.py``). ``cmdline(argv, device=None)`` runs on the CUDA card (it raises without
 one) unless ``device`` says otherwise; ``lpips_weights`` and
 ``fid_weights`` name the metric networks' npz files (``None``: the
 flagged proxies).

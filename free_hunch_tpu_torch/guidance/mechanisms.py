@@ -19,7 +19,7 @@ x_t against a cotangent, through the UNet with frozen parameters.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,8 @@ from free_hunch_tpu_torch.operators import assets
 from free_hunch_tpu_torch.ops import lowrank
 from free_hunch_tpu_torch.ops.dct import dct_2d, idct_2d
 from free_hunch_tpu_torch.ops.lowrank import LowRank
+from free_hunch_tpu_torch.parallel import collectives as coll
+from free_hunch_tpu_torch.parallel import sharded_cov
 
 _F32 = np.float32
 
@@ -267,7 +269,17 @@ class FreeHunch(ConditioningMechanism):
     The knobs and their reasons are the JAX class's. ``algebra_dtype``
     ('float32', the default, or 'float64') is the dtype of the covariance
     state, the basis changes and the CG solve; the denoiser and its vjp stay
-    f32. ``cov_partition`` (a sharded covariance) is not ported and raises."""
+    f32. The JAX class's ``cov_partition`` (``mechanisms.py:381-388``,
+    ``:449-466``) is ``model_group`` here (``parallel/mesh.py::
+    make_model_groups``; ``parallel/sharded_cov.py``): a group of more than
+    one rank shards the state's d over its ranks. Each rank keeps its
+    d-block of ``diag`` and ``Ut`` (the DCT prior's too), the basis change
+    runs the DCT on the whole replicated image and keeps the block, and the
+    way back gathers the blocks and inverts; every contraction over d is
+    one all_reduce. The
+    CG in measurement space, the denoiser and the guidance gradient see
+    whole replicated images, and the CG's host decisions go through
+    ``parallel/collectives.py::decide``."""
     image_base_covariance: str = "identity"   # identity | dct_diagonal | dct_diagonal_noinfo
     init_denoiser_variance: float = 1.0
     init_noise_variance: float = 1.0
@@ -298,14 +310,12 @@ class FreeHunch(ConditioningMechanism):
     transport_formula: str = "telescoped"
     guidance_gradient: str = "vjp"
     guidance_vjp_below: float = 1.0
-    cov_partition: Optional[Tuple[Optional[str], Optional[str]]] = None
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.algebra_dtype not in (None, "float32", "float64"):
             raise ValueError(f"algebra_dtype must be None, 'float32' or 'float64', "
                              f"got {self.algebra_dtype!r}")
-        if self.cov_partition is not None:
-            raise NotImplementedError("cov_partition (sharded covariance) is not ported")
         if self.guidance_gradient not in ("vjp", "covariance", "hybrid"):
             raise ValueError(f"unknown guidance_gradient {self.guidance_gradient!r} "
                              f"(vjp | covariance | hybrid)")
@@ -320,15 +330,33 @@ class FreeHunch(ConditioningMechanism):
         """The algebra dtype."""
         return torch.float64 if self.algebra_dtype == "float64" else torch.float32
 
+    def _group(self):
+        """The model group the state is sharded over, or None."""
+        mg = self.model_group
+        return mg if mg is not None and mg.sharded else None
+
+    def _reduce(self):
+        mg = self._group()
+        return lowrank.whole if mg is None else sharded_cov.model_reduce(mg)
+
+    def _decide(self, flag) -> bool:
+        return coll.decide(flag, self._group())
+
     # -- basis --------------------------------------------------------------
 
     def _to_basis(self, x):
-        """(B, C, H, W) pixel -> (B, d) transform coordinates."""
+        """(B, C, H, W) pixel -> (B, d) transform coordinates (this rank's
+        d-block on a model group)."""
         if self.image_base_covariance.startswith("dct"):
             x = dct_2d(x)
-        return x.reshape(x.shape[0], -1)
+        v = x.reshape(x.shape[0], -1)
+        mg = self._group()
+        return v if mg is None else v[:, sharded_cov.d_block(v.shape[1], mg)]
 
     def _from_basis(self, v, img_shape):
+        mg = self._group()
+        if mg is not None:
+            v = sharded_cov.gather_d(v, mg)
         v = v.reshape((-1,) + tuple(img_shape))
         if self.image_base_covariance.startswith("dct"):
             v = idct_2d(v)
@@ -349,9 +377,11 @@ class FreeHunch(ConditioningMechanism):
 
     def init_state(self, batch: int, img_shape: Tuple[int, ...]) -> FreeHunchState:
         dev = self.forward_operator.device
-        d = int(np.prod(img_shape))
-        cov = cov_mod.init_state(self._init_diag(img_shape, dev), batch, d,
-                                 self.cov_capacity)
+        cov = cov_mod.init_state(self._init_diag(img_shape, dev), batch,
+                                 int(np.prod(img_shape)), self.cov_capacity)
+        mg = self._group()
+        if mg is not None:
+            cov = sharded_cov.shard_state(cov, mg)
         zeros = torch.zeros((batch,) + tuple(img_shape), dtype=self._adt, device=dev)
         u_shape = (batch,) + tuple(self.forward_operator.out_shape[1:])
         return FreeHunchState(
@@ -360,10 +390,16 @@ class FreeHunch(ConditioningMechanism):
             cg_niter=0, cg_resnorm=torch.zeros((), device=dev),
             cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
 
+    def _whole(self, v):
+        """A (B, d) vector whole: gathered from the d-blocks when sharded."""
+        mg = self._group()
+        return v if mg is None else sharded_cov.gather_d(v, mg)
+
     def cov_matvec_pixel(self, cov, v):
         """Sigma_0 @ v for pixel-space (B, C, H, W) v (the CG callback)."""
         shape = v.shape[1:]
-        return self._from_basis(cov_mod.cov_matvec(cov, self._to_basis(v)), shape)
+        return self._from_basis(cov_mod.cov_matvec(cov, self._to_basis(v), self._reduce()),
+                                shape)
 
     # -- the guidance update --------------------------------------------------
 
@@ -383,9 +419,10 @@ class FreeHunch(ConditioningMechanism):
 
         has_prev = state.step > 0
         sigma_changed = has_prev and sigma != state.prev_sigma
+        reduce = self._reduce()
 
         def x_changed():
-            return has_prev and not bool(torch.all(torch.abs(x_t - state.prev_x) < 1e-12))
+            return has_prev and not self._decide(torch.all(torch.abs(x_t - state.prev_x) < 1e-12))
 
         cov = state.cov
         if self.do_space_updates:
@@ -397,9 +434,9 @@ class FreeHunch(ConditioningMechanism):
                              if self.transport_formula == "two_inverse"
                              else cov_mod.transport_score)
                 score_prev = (prev_mean_b - prev_x_b) / state.prev_sigma**2
-                cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma)
+                cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
                 prev_mean_b, _ = transport(state.cov, cov, state.prev_sigma, sigma,
-                                           prev_x_b, score_prev)
+                                           prev_x_b, score_prev, reduce)
                 if self.transport_mean_bound is not None:
                     b = float(self.transport_mean_bound)
                     prev_mean_b = self._to_basis(torch.clamp(
@@ -420,16 +457,17 @@ class FreeHunch(ConditioningMechanism):
                     curvature_guard=self.bfgs_curvature_guard,
                     secant_novelty_min=self.bfgs_secant_novelty_min)
                 cov = cov_mod.space_update(cov, sigma, prev_x_b, self._to_basis(x_t),
-                                           prev_mean_b, self._to_basis(x0_a), params)
+                                           prev_mean_b, self._to_basis(x0_a), params, reduce)
         elif sigma_changed:
-            cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma)
+            cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
 
         # (4) solve (A Sigma_0 A^T + sigma_s^2 I) u = y - A x0;  mat = A^T u
         dct_basis = self.image_base_covariance.startswith("dct")
         # the mean eigenvalue of Sigma_0 per sample: the scalar preconditioner
         # of the solvers that take no spectrum (inpainting, identity basis)
-        lr_trace = torch.sum(cov.M * torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)), dim=(-2, -1))
-        cov_vbar = (torch.sum(cov.diag, dim=-1) + lr_trace) / cov.diag.shape[-1]
+        gram = reduce(torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)))
+        lr_trace = torch.sum(cov.M * gram, dim=(-2, -1))
+        cov_vbar = (reduce(torch.sum(cov.diag, dim=-1)) + lr_trace) / x_t[0].numel()
         recycle = self.cg_warm_start == "prev"
         recycle_kw = (dict(u_init=state.prev_u, u_init_valid=state.step > 0,
                            return_u=True) if recycle else {})
@@ -445,7 +483,8 @@ class FreeHunch(ConditioningMechanism):
                                    return_info=True, precondition=self.cg_precondition,
                                    stall_iters=self.cg_stall_iters,
                                    rtol_floor=self.rtol_floor,
-                                   track_best=self.cg_track_best, **recycle_kw)
+                                   track_best=self.cg_track_best, decide=self._decide,
+                                   **recycle_kw)
         else:
             solved = choose_solver(self.forward_operator, y, x0_a,
                                    cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
@@ -454,10 +493,11 @@ class FreeHunch(ConditioningMechanism):
                                    maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
                                    return_info=True, precondition=self.cg_precondition,
                                    stall_iters=self.cg_stall_iters,
-                                   cov_dct_diag=lowrank.diag_of(cov) if dct_basis else None,
+                                   cov_dct_diag=self._whole(lowrank.diag_of(cov))
+                                   if dct_basis else None,
                                    rtol_floor=self.rtol_floor,
                                    track_best=self.cg_track_best,
-                                   cg_coords=self.cg_coords, **recycle_kw)
+                                   cg_coords=self.cg_coords, decide=self._decide, **recycle_kw)
         if recycle:
             mat, cg_info, u_next = solved
         else:

@@ -73,7 +73,8 @@ def _flatten(v):
 def _run_cg(matvec_img: Callable, b_img: torch.Tensor, rtol, maxiter: int,
             precond: Optional[Callable] = None, warm_start: bool = False,
             min_iter: int = 0, stall_iters: int = 25, track_best: bool = True,
-            x0_init: Optional[torch.Tensor] = None, x0_init_valid: Optional[bool] = None):
+            x0_init: Optional[torch.Tensor] = None, x0_init_valid: Optional[bool] = None,
+            decide: Callable = bool):
     """CG over (B, ...) image-shaped systems via flatten/unflatten.
 
     warm_start starts from x0 = b (the reference torch CG's default);
@@ -90,7 +91,7 @@ def _run_cg(matvec_img: Callable, b_img: torch.Tensor, rtol, maxiter: int,
     pc = None if precond is None else (lambda v: _flatten(precond(v.reshape(shape))))
     u, info = cg_mod.cg_batch(mv, _flatten(b_img), rtol=rtol, maxiter=maxiter,
                               precond=pc, x0=x0, min_iter=min_iter,
-                              stall_iters=stall_iters, track_best=track_best)
+                              stall_iters=stall_iters, track_best=track_best, decide=decide)
     return u.reshape(shape), info
 
 
@@ -148,7 +149,7 @@ def deblur_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
                   return_info=False, warm_start=False, min_iter=0,
                   precondition=True, stall_iters=25, cov_fourier_spec=None,
                   track_best=True, u_init=None, u_init_valid=None,
-                  return_u=False):
+                  return_u=False, decide=bool):
     """General-covariance deblur solve in pixel space. Per CG iteration:
     u -> sigma_s^2 u + A C A^T u with A^T via FBC. Preconditioned with the
     Fourier-diagonal inverse for a spectral (or scalar) model of C."""
@@ -175,7 +176,7 @@ def deblur_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
     u, info = _run_cg(matvec, b, rtol, maxiter, precond=precond,
                       warm_start=warm_start, min_iter=min_iter,
                       stall_iters=stall_iters, track_best=track_best,
-                      x0_init=u_init, x0_init_valid=u_init_valid)
+                      x0_init=u_init, x0_init_valid=u_init_valid, decide=decide)
     mat = _ifft2_r(FBC * _fft2(u))
     if return_u:
         return mat, info, u
@@ -199,7 +200,8 @@ def deblur_mat_cg_fourier(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
                           return_info=False, warm_start=False, min_iter=0,
                           precondition=True, stall_iters=25,
                           cov_fourier_spec=None, track_best=True,
-                          u_init=None, u_init_valid=None, return_u=False):
+                          u_init=None, u_init_valid=None, return_u=False,
+                          decide=bool):
     """``deblur_mat_cg`` in weighted rfft2 coordinates: CG runs on
     w = rfft2(u), real and imaginary parts stacked, each retained column
     scaled by the square root of its spectral multiplicity. Every inner
@@ -255,7 +257,7 @@ def deblur_mat_cg_fourier(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
         x0_f = pack(rfft2(u_init.to(rdt)))
     u_f, info = cg_mod.cg_batch(matvec, b_f, rtol=rtol, maxiter=maxiter,
                                 precond=precond, x0=x0_f, min_iter=min_iter,
-                                stall_iters=stall_iters, track_best=track_best)
+                                stall_iters=stall_iters, track_best=track_best, decide=decide)
     # || . ||_packed = sqrt(H*W) x the pixel norm
     info = info._replace(residual_norm=info.residual_norm / float(np.sqrt(H * W)))
     mat = irfft2(FBCh * unpack(u_f), s=(H, W)).to(rdt)
@@ -299,7 +301,7 @@ def sr_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
               return_info=False, warm_start=False, min_iter=0,
               precondition=True, stall_iters=25, cov_fourier_spec=None,
               track_best=True, u_init=None, u_init_valid=None,
-              return_u=False):
+              return_u=False, decide=bool):
     """General-covariance SR solve on the low-resolution grid, with the
     polyphase-diagonal preconditioner for a spectral (or scalar) model of C."""
     sigma_s = _clip_sigma_s(operator, 0.01)
@@ -330,7 +332,7 @@ def sr_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
     u, info = _run_cg(matvec, b, rtol, maxiter, precond=precond,
                       warm_start=warm_start, min_iter=min_iter,
                       stall_iters=stall_iters, track_best=track_best,
-                      x0_init=u_init, x0_init_valid=u_init_valid)
+                      x0_init=u_init, x0_init_valid=u_init_valid, decide=decide)
     mat = _ifft2_r(FBC * _fft2(upsample(u, sf)))
     if return_u:
         return mat, info, u
@@ -355,7 +357,7 @@ def inpainting_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
                       return_info=False, warm_start=False, min_iter=0,
                       precondition=True, stall_iters=25, cov_fourier_spec=None,
                       track_best=True, u_init=None, u_init_valid=None,
-                      return_u=False):
+                      return_u=False, decide=bool):
     """General-covariance inpainting solve, Jacobi-preconditioned: exactly
     for a per-pixel variance, with v_bar for a scalar model of C.
     ``cov_fourier_spec`` is not used (a mask is not diagonal in Fourier
@@ -384,7 +386,7 @@ def inpainting_mat_cg(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
     mat, info = _run_cg(matvec, b, rtol, maxiter, precond=precond,
                         warm_start=warm_start, min_iter=min_iter,
                         stall_iters=stall_iters, track_best=track_best,
-                        x0_init=u_init, x0_init_valid=u_init_valid)
+                        x0_init=u_init, x0_init_valid=u_init_valid, decide=decide)
     if return_u:
         # mat = mask * u is applied inside the matvec: the iterate is u too
         return mat, info, mat
@@ -416,7 +418,8 @@ def choose_solver(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
                   precondition: bool = True, stall_iters: int = 25,
                   cov_dct_diag=None, rtol_floor: float = RTOL_F32_FLOOR,
                   track_best: bool = True, cg_coords: str = "auto",
-                  u_init=None, u_init_valid=None, return_u: bool = False):
+                  u_init=None, u_init_valid=None, return_u: bool = False,
+                  decide: Callable = bool):
     """Solve for ``mat`` given an operator by name.
 
     method:
@@ -435,7 +438,10 @@ def choose_solver(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
 
     cg_coords: the deblur family's CG coordinates, 'pixel' or 'fourier'
     (``deblur_mat_cg_fourier``); 'auto' takes 'fourier' for a CPU tensor
-    and 'pixel' for a CUDA one, as the JAX package decides by backend."""
+    and 'pixel' for a CUDA one, as the JAX package decides by backend.
+
+    decide: how the CG turns its stopping tests into host decisions
+    (``ops/cg.py::cg_batch``)."""
     name = operator.name
     if name not in _CLOSED:
         raise ValueError(f"no mat solver for operator {name!r}; expected one of "
@@ -463,7 +469,8 @@ def choose_solver(operator, y, x0_mean, *, theta0_var=None, cov_mv=None,
             return mat, _no_cg_info(x0_mean), u
         mat = _CLOSED[name](operator, y, x0_mean, theta0_var)
         return (mat, _no_cg_info(x0_mean)) if return_info else mat
-    recycle = dict(u_init=u_init, u_init_valid=u_init_valid, return_u=return_u)
+    recycle = dict(u_init=u_init, u_init_valid=u_init_valid, return_u=return_u,
+                   decide=decide)
     if method in ("cg", "customcuda"):
         rtol = (rtol_schedule(sigma_t, max_rtol, floor=rtol_floor)
                 if sigma_t is not None else 1e-4)

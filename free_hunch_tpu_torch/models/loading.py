@@ -88,7 +88,7 @@ def random_init_(model: nn.Module, seed: int = 0, zero_scale: float = 0.1) -> nn
 def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
                init_random_if_missing: bool = False, rng_seed: int = 0,
                remat: bool = True, device=None, quant=None, fused_gn_quant: bool = False,
-               quant_1x1: bool = True) -> Tuple[UNetModel, dict]:
+               quant_1x1: bool = True, model_group=None) -> Tuple[UNetModel, dict]:
     """Build the UNet per the setup file on ``device`` (default CUDA) and
     load the reference checkpoint, or, when it is absent and
     ``init_random_if_missing``, seeded random weights. Returns
@@ -97,8 +97,10 @@ def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
     Sets the port's precision policy (``use_full_f32``).
 
     quant: None (bf16 torso) or "int8" / "int8_static" / "int8_calib";
-    ``fused_gn_quant`` and ``quant_1x1`` as in ``UNetConfig``. A seed gives
-    the same random weights for every torso."""
+    ``fused_gn_quant`` and ``quant_1x1`` as in ``UNetConfig``;
+    ``model_group`` as in ``UNetModel``. A seed gives the
+    same random weights for every torso, and on every rank of a model group
+    (the seed is the caller's, never the rank)."""
     dev = resolve_device(device)
     use_full_f32()
     with open(setup_path, "r") as f:
@@ -106,6 +108,7 @@ def load_model(state_dict_path: str, setup_path: str, dtype=torch.bfloat16,
     with torch.device(dev):
         model = create_model(dtype=dtype, remat=remat, quant=quant,
                              fused_gn_quant=fused_gn_quant, quant_1x1=quant_1x1,
+                             model_group=model_group,
                              **model_args)
     if state_dict_path and os.path.exists(state_dict_path):
         sd = torch.load(state_dict_path, map_location=dev, weights_only=True)

@@ -33,7 +33,26 @@ state-dict names (``input_blocks.1.0.in_layers.0.weight``, ...,
   into a per-sample affine. ``quant_1x1`` stands for
   ``FREE_HUNCH_QUANT_1X1`` (``unet.py:124``, default on). Both are config
   fields: the port reads no environment.
-* ``spatial_partition`` is not ported.
+* ``spatial_partition`` (JAX ``unet.py:51-63``, ``:399-406``,
+  ``:477-485``) is the ``model_group`` of ``UNetModel(cfg, model_group=...)``
+  (``parallel/mesh.py::make_model_groups``): a group of more than one rank
+  shards the torso's activation HEIGHT over its ranks, where the JAX
+  package pins it to ``P(data, model, None, None)`` over an ambient mesh
+  and GSPMD inserts the collectives. Here they are written out
+  (``parallel/collectives.py``): the replicated input is sliced to the
+  rank's rows; every 3x3 conv (stride 1 and 2) gets a one-row halo from
+  each neighbour, zeros at the image's edges as its padding has;
+  ``avg_pool2d`` and the nearest upsample stay local; every
+  ``GroupNorm32`` merges its statistics over the group
+  (``ops/groupnorm.py::groupnorm_silu_sharded``, K1's stats and apply
+  entries on the card); attention gathers its keys and values; the output
+  is gathered to whole images on every rank, as the JAX model hands the
+  guidance algebra replicated H and W. Every rank of the group must hold
+  the same weights, input and timesteps. The gradient with respect to the
+  input is whole; parameter gradients are each rank's part. The model
+  size must divide every level's height and leave an even shard before
+  each stride-2 step (JAX pads a ragged shard instead), and the int8 torso
+  does not shard: both raise, and are ROADMAP item 15b.
 """
 from __future__ import annotations
 
@@ -46,8 +65,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from free_hunch_tpu_torch.ops.groupnorm import groupnorm_silu
+from free_hunch_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_sharded
 from free_hunch_tpu_torch.ops.quant import QuantConv, QuantDense, _QuantSite
+from free_hunch_tpu_torch.parallel import collectives as coll
+from free_hunch_tpu_torch.parallel.mesh import ITEM_15B
 
 QUANT_MODES = {"int8": "dynamic", "int8_static": "static", "int8_calib": "calib"}
 
@@ -81,6 +102,24 @@ class UNetConfig:
             raise ValueError(f"quant={self.quant!r} not in {sorted(QUANT_MODES)}")
 
 
+def check_shard_heights(cfg: UNetConfig, height: int, model_size: int) -> None:
+    """Raise a ValueError naming the level where ``model_size`` does not
+    divide the level's height, or leaves an odd shard before a stride-2
+    step (the JAX package pads such a ragged shard: ROADMAP item 15b)."""
+    h = height
+    for level in range(len(cfg.channel_mult)):
+        if h % model_size:
+            raise ValueError(f"height shard: a model axis of {model_size} does not "
+                             f"divide the height {h} of level {level} ({ITEM_15B}: ragged "
+                             f"shards)")
+        if level != len(cfg.channel_mult) - 1:
+            if (h // model_size) % 2:
+                raise ValueError(f"height shard: level {level}'s shard of "
+                                 f"{h // model_size} rows is odd before its stride-2 step "
+                                 f"({ITEM_15B}: ragged shards)")
+            h //= 2
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
     """Sinusoidal embeddings, cos-first ordering."""
     half = dim // 2
@@ -99,6 +138,8 @@ class GroupNorm32(nn.Module):
     fused with the SiLU that follows it. Takes NCHW (ideally channels-last in
     memory) and returns the same layout in the input's dtype."""
 
+    mg = None  # the model group of a height shard: statistics merged over it
+
     def __init__(self, channels: int, apply_silu: bool = False):
         super().__init__()
         self.apply_silu = apply_silu
@@ -106,15 +147,26 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = groupnorm_silu(x.permute(0, 2, 3, 1), self.weight, self.bias, 32, 1e-5,
-                           self.apply_silu)
+        x = x.permute(0, 2, 3, 1)
+        if self.mg is None:
+            y = groupnorm_silu(x, self.weight, self.bias, 32, 1e-5, self.apply_silu)
+        else:
+            y = groupnorm_silu_sharded(x, self.weight, self.bias, 32, 1e-5, self.apply_silu,
+                                       self.mg)
         return y.permute(0, 3, 1, 2)
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+def _conv(x: torch.Tensor, conv: nn.Conv2d, mg=None) -> torch.Tensor:
+    """A torso conv; on a height shard (``mg``, its model group) a 3x3 one
+    takes a one-row halo from each neighbour in place of its padding in
+    height."""
     if isinstance(conv, QuantConv):
         return conv(x)      # casts to the torso dtype itself
-    return conv(x.to(conv.weight.dtype))
+    x = x.to(conv.weight.dtype)
+    if mg is None or conv.kernel_size[0] == 1:
+        return conv(x)
+    x = coll.halo_rows(x, mg).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]))
 
 
 def _torso_conv(cin: int, cout: int, kernel: int, quant: Optional[str] = None,
@@ -132,6 +184,7 @@ def _upsample(x):
 
 class Upsample(nn.Module):
     """Nearest x2 upsample + optional 3x3 conv."""
+    mg = None
 
     def __init__(self, channels: int, use_conv: bool):
         super().__init__()
@@ -141,11 +194,12 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         x = _upsample(x)
-        return _conv(x, self.conv) if self.use_conv else x
+        return _conv(x, self.conv, self.mg) if self.use_conv else x
 
 
 class Downsample(nn.Module):
     """Stride-2 3x3 conv with symmetric padding 1, or a 2x2 average pool."""
+    mg = None
 
     def __init__(self, channels: int, use_conv: bool):
         super().__init__()
@@ -154,7 +208,7 @@ class Downsample(nn.Module):
         self.use_conv = use_conv
 
     def forward(self, x):
-        return _conv(x, self.op) if self.use_conv else F.avg_pool2d(x, 2)
+        return _conv(x, self.op, self.mg) if self.use_conv else F.avg_pool2d(x, 2)
 
 
 class ResBlock(nn.Module):
@@ -167,6 +221,7 @@ class ResBlock(nn.Module):
     takes the fused route: each norm and conv pair is one
     ``QuantConv(x, gn=(gamma_nc, beta_nc))`` call, the norm's modules only
     holding its parameters."""
+    mg = None
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  use_scale_shift_norm: bool, up: bool = False, down: bool = False,
@@ -229,7 +284,7 @@ class ResBlock(nn.Module):
             h, x = _upsample(h), _upsample(x)
         elif self.down:
             h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
-        h = _conv(h, self.in_layers[2])
+        h = _conv(h, self.in_layers[2], self.mg)
         emb_out = self._emb_out(emb, h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out, 2, dim=1)
@@ -237,7 +292,7 @@ class ResBlock(nn.Module):
             h = F.silu(h)
         else:
             h = self.out_layers[0](h + emb_out)
-        h = _conv(h, self.out_layers[3])
+        h = _conv(h, self.out_layers[3], self.mg)
         skip = x if self.skip_connection is None else _conv(x, self.skip_connection)
         return skip + h
 
@@ -250,7 +305,9 @@ class ResBlock(nn.Module):
 class AttentionBlock(nn.Module):
     """Full self-attention over spatial positions. qkv/proj_out keep the
     reference's 1x1 conv1d weights (O, I, 1); on the int8 torso they are
-    ``QuantDense`` layers."""
+    ``QuantDense`` layers. On a height shard each rank's queries attend to
+    the keys and values of every rank (gathered over the model group)."""
+    mg = None
 
     def __init__(self, channels: int, num_heads: int, use_new_attention_order: bool,
                  quant: Optional[str] = None, dtype: torch.dtype = torch.bfloat16):
@@ -282,6 +339,8 @@ class AttentionBlock(nn.Module):
             q, k, v = (a.reshape(n, t, heads, ch) for a in torch.chunk(qkv, 3, dim=-1))
         else:
             q, k, v = torch.chunk(qkv.reshape(n, t, heads, 3 * ch), 3, dim=-1)
+        if self.mg is not None:
+            k, v = coll.gather_partial(k, 1, self.mg), coll.gather_partial(v, 1, self.mg)
         scale = 1.0 / math.sqrt(math.sqrt(ch))
         qf = (q * scale).float().permute(0, 2, 1, 3)                    # (n, h, t, c)
         kf = (k * scale).float().permute(0, 2, 3, 1)                    # (n, h, c, s)
@@ -302,11 +361,17 @@ class _Block(nn.ModuleList):
 
 
 class UNetModel(nn.Module):
-    """ADM UNet: NCHW float32 in, NCHW float32 out."""
+    """ADM UNet: NCHW float32 in, NCHW float32 out. ``model_group``: a
+    ``parallel.mesh.ModelGroup``; one of more than one rank shards the
+    torso's height over its ranks (see the module docstring)."""
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, model_group=None):
         super().__init__()
         self.cfg = cfg
+        self.mg = model_group if model_group is not None and model_group.sharded else None
+        if self.mg is not None and cfg.quant is not None:
+            raise ValueError(f"quant={cfg.quant!r} with a model axis: the int8 torso on a "
+                             f"height shard (K2 and K3 across ranks) is {ITEM_15B}")
         mc = cfg.model_channels
         ted = mc * 4
         heads_up = cfg.num_heads_upsample if cfg.num_heads_upsample != -1 else cfg.num_heads
@@ -367,6 +432,10 @@ class UNetModel(nn.Module):
 
         self.out = nn.ModuleList([GroupNorm32(ch, apply_silu=True), nn.Identity(),
                                   nn.Conv2d(ch, cfg.out_channels, 3, padding=1)])
+        if self.mg is not None:
+            for m in self.modules():
+                if isinstance(m, (GroupNorm32, ResBlock, AttentionBlock, Upsample, Downsample)):
+                    m.mg = self.mg
         self.cast_torso()
 
     def cast_torso(self):
@@ -397,16 +466,23 @@ class UNetModel(nn.Module):
             if y is None:
                 raise ValueError("class-conditional model needs labels")
             emb = emb + self.label_emb(y)
+        mg = self.mg
+        if mg is not None:
+            check_shard_heights(cfg, x.shape[2], mg.model_size)
+            x = coll.scatter(x, 2, mg)
         h = x.to(cfg.dtype).contiguous(memory_format=torch.channels_last)
         hs = []
-        for block in self.input_blocks:
-            h = block(h, emb)
+        for i, block in enumerate(self.input_blocks):
+            h = _conv(h, block[0], mg) if i == 0 else block(h, emb)
             hs.append(h)
         h = self.middle_block(h, emb)
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb)
         h = self.out[0](h.float())
-        return self.out[2](h).contiguous()
+        h = _conv(h, self.out[2], mg)
+        if mg is not None:
+            h = coll.gather_replicated(h, 2, mg)
+        return h.contiguous()
 
 
 def create_model(image_size=256, num_channels=256, num_res_blocks=2, channel_mult="",
@@ -415,7 +491,7 @@ def create_model(image_size=256, num_channels=256, num_res_blocks=2, channel_mul
                  use_scale_shift_norm=True, dropout=0.0, resblock_updown=True,
                  use_fp16=False, use_new_attention_order=False, use_checkpoint=False,
                  dtype=torch.bfloat16, remat=True, quant=None, fused_gn_quant=False,
-                 quant_1x1=True, **_unused) -> UNetModel:
+                 quant_1x1=True, model_group=None, **_unused) -> UNetModel:
     """Build a UNet from the OpenAI setup-file argument surface."""
     if channel_mult == "" or channel_mult is None:
         channel_mult = {512: (0.5, 1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4),
@@ -433,4 +509,4 @@ def create_model(image_size=256, num_channels=256, num_res_blocks=2, channel_mul
         use_scale_shift_norm=use_scale_shift_norm, resblock_updown=resblock_updown,
         use_new_attention_order=use_new_attention_order, dtype=dtype, remat=remat,
         quant=quant, fused_gn_quant=fused_gn_quant, quant_1x1=quant_1x1)
-    return UNetModel(cfg)
+    return UNetModel(cfg, model_group=model_group)

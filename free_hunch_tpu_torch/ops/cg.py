@@ -8,7 +8,10 @@ p^T A p breakdown test, best-iterate tracking (or the last iterate with
 ``lax.while_loop`` becomes a Python loop. Its ``any(active)`` test and the
 floor check's ``any(stall_hit & active)`` each read one device boolean on
 the host, so an iteration costs up to two host syncs; ``CGInfo.host_syncs``
-counts them. Capturing the body in a CUDA graph is later work.
+counts them. Each goes through ``decide`` (default ``bool``): under a model
+group, ``parallel/collectives.py::decide``, which checks that the group's
+ranks, which run the CG on replicated vectors, take the same branch.
+Capturing the body in a CUDA graph is later work.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
              precond: Optional[Callable] = None, rtol=1e-3, atol=0.0,
              maxiter: int = 1000, stall_iters: int = 25, min_iter: int = 0,
              track_best: bool = True, stall_engage: float = 0.5,
-             stall_floor_check: bool = True):
+             stall_floor_check: bool = True, decide: Callable = bool):
     """Solve A x = b per batch row; b is (batch, n) and matvec maps
     (batch, n) -> (batch, n) applying a symmetric PSD A per row. Row i stops
     when ||r_i|| <= max(rtol_i ||b_i||, atol_i), after ``stall_iters``
@@ -71,7 +74,7 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
         forced = i < min_iter
         if not forced:
             syncs += 1
-            if not bool(active.any()):
+            if not decide(active.any()):
                 break
         act = torch.ones_like(active) if forced else active
         ap = matvec(p)
@@ -102,7 +105,7 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
             # prove the floor before freezing: one extra matvec, only when
             # some active row's counter fired
             syncs += 1
-            if bool((stall_hit & act).any()):
+            if decide((stall_hit & act).any()):
                 ax = matvec(x)
                 true_r = b - ax
                 true_res = torch.sqrt(_dot(true_r, true_r))

@@ -24,6 +24,17 @@ one forward from its shapes and prints the bound.
 The gradient is the JAX package's ``custom_vjp`` (:147-163): no backward
 kernel; the backward recomputes the plain version under autograd and pulls
 the cotangent back through it.
+
+On a height shard (``UNetModel(model_group=)``: each rank of a model
+group holds some rows of every sample) ``groupnorm_silu_sharded`` runs the
+two halves of the two-pass path with a merge across ranks between them:
+the stats entry (``fh_groupnorm_stats``: this shard's (mean, M2) per
+(sample, group)), one gather of those partials over the group, and the
+apply entry (``fh_groupnorm_apply``), each of whose blocks first merges
+the gathered partials in rank order in f32 (Chan's merge, as the finalize
+merges chunks). Its plain twin, ``groupnorm_silu_sharded_plain``, sums x and
+then the centred squares over the group (two all_reduces); it runs on the
+CPU and in the backward.
 """
 from __future__ import annotations
 
@@ -36,6 +47,9 @@ import torch
 # Calls that launched the CUDA kernel sequence (stats, finalize, apply; or
 # the one cluster kernel). Plain-version calls on CPU tensors do not count.
 launches = 0
+# The height-sharded calls' launches of the stats entry (stats, finalize)
+# and of the apply entry (``groupnorm_silu_sharded``): one of each a call.
+sharded_launches = {"stats": 0, "apply": 0}
 
 # The streaming passes of K1 and K2 (csrc/gn_stats.cuh): blocks of about 256
 # threads, each thread 16 bytes of a row and kUnroll = 4 rows in flight;
@@ -194,27 +208,32 @@ def groupnorm_silu_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor
     return _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu)
 
 
-def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None):
-    """K1 as ``groupnorm_silu_cuda`` launches it; ``path`` forces a path
-    (see ``gn_plan``), to compare the two."""
-    global launches
+def _check_k1_input(x, groups, gamma=None, beta=None):
+    """(N, S, C) of a K1 input, raising on anything the kernel does not take."""
     if not x.is_cuda:
-        raise ValueError("groupnorm_silu_cuda needs a CUDA tensor")
+        raise ValueError("groupnorm kernel needs a CUDA tensor")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"groupnorm kernel takes bf16 or f32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("groupnorm kernel needs a contiguous channels-last tensor")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("groupnorm kernel needs a contiguous, 16-byte aligned channels-last "
+                         "tensor")
     n, c = x.shape[0], x.shape[-1]
     s = x.numel() // max(n * c, 1)
     if c % groups or s * (c // groups) >= 2 ** 24:
         raise ValueError(f"groupnorm kernel: C={c} must be a multiple of groups={groups}, "
                          f"and S*C/G={s * (c // groups)} < 2^24")
-    if x.data_ptr() % 16:
-        raise ValueError("groupnorm kernel needs a 16-byte aligned input")
     for t in (gamma, beta):
-        if t.device != x.device or t.dtype != torch.float32 or \
-                t.shape != (c,) or not t.is_contiguous():
+        if t is not None and (t.device != x.device or t.dtype != torch.float32 or
+                              t.shape != (c,) or not t.is_contiguous()):
             raise ValueError("gamma/beta must be contiguous f32 (C,) on x's device")
+    return n, s, c
+
+
+def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None):
+    """K1 as ``groupnorm_silu_cuda`` launches it; ``path`` forces a path
+    (see ``gn_plan``), to compare the two."""
+    global launches
+    n, s, c = _check_k1_input(x, groups, gamma, beta)
     plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path=path)
     y = torch.empty_like(x)
     scratch = torch.empty(plan.scratch, device=x.device, dtype=torch.float32) \
@@ -267,3 +286,147 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, gamma, beta, groups, eps, apply_silu)
     raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
+
+
+# -- a height shard: statistics merged across the ranks of a model group ------
+
+def _shard_counts(x: torch.Tensor, groups: int) -> int:
+    """Elements of one (sample, group) in this shard."""
+    n, c = x.shape[0], x.shape[-1]
+    return (x.numel() // max(n * c, 1)) * (c // groups)
+
+
+def groupnorm_silu_sharded_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                                 groups: int, eps: float, apply_silu: bool,
+                                 mg) -> torch.Tensor:
+    """Plain PyTorch GroupNorm(+SiLU) of a channels-last (N, ..., C) shard
+    whose samples continue on the other ranks of the model group ``mg``
+    (every shard the same size): two passes, centred, each a
+    differentiable all_reduce of per-(sample, group) sums, so autograd
+    through it is the gradient of the whole norm."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    red = tuple(range(1, x.dim() - 1))
+    bshape = (n,) + (1,) * (x.dim() - 2) + (c,)
+    count = float(_shard_counts(x, groups) * mg.model_size)
+    xf = x.float()
+    gsum = coll.all_reduce(xf.sum(dim=red).reshape(n, groups, cg).sum(-1), mg)
+    gmean_c = (gsum / count).repeat_interleave(cg, dim=-1)
+    centered = xf - gmean_c.reshape(bshape)
+    gsq = coll.all_reduce(centered.square().sum(dim=red).reshape(n, groups, cg).sum(-1), mg)
+    inv_c = torch.rsqrt(gsq / count + eps).repeat_interleave(cg, dim=-1)
+    y = centered * inv_c.reshape(bshape)
+    y = y * gamma.float() + beta.float()
+    if apply_silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
+
+
+_sharded_fns: dict = {}
+
+
+def _k1_sharded_entries():
+    if not _sharded_fns:
+        from free_hunch_tpu_torch.ops import _nvcc
+        lib = _nvcc.load("groupnorm")
+        st, ap = lib.fh_groupnorm_stats, lib.fh_groupnorm_apply
+        st.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        ap.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 +
+                       [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2 +
+                       [ctypes.c_void_p])
+        st.restype = ap.restype = ctypes.c_int
+        _sharded_fns.update(stats=st, apply=ap)
+    return _sharded_fns
+
+
+def shard_stats_cuda(x: torch.Tensor, groups: int = 32) -> torch.Tensor:
+    """The stats entry on a contiguous channels-last CUDA shard: (N, G, 2)
+    f32, this shard's (mean, M2) per (sample, group)."""
+    n, s, c = _check_k1_input(x, groups)
+    plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path="two-pass")
+    out = torch.empty((n, groups, 2), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(2 * n * plan.chunks * groups, device=x.device, dtype=torch.float32)
+    err = _k1_sharded_entries()["stats"](
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, s, c, groups, plan.rows,
+        plan.chunks, plan.ty, plan.lanes, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm stats launch failed: CUDA error {err}")
+    sharded_launches["stats"] += 1
+    return out
+
+
+def shard_apply_cuda(x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+                     apply_silu: bool = True) -> torch.Tensor:
+    """The apply entry: y from x and the model group's gathered statistics,
+    ``parts`` (M, N, G, 2) f32, each rank's (mean, M2) of a shard of x's
+    size, which the kernel merges in rank order (Chan's merge, as the
+    finalize merges chunks) before it applies them."""
+    n, s, c = _check_k1_input(x, groups, gamma, beta)
+    if parts.dim() != 4 or parts.shape[1:] != (n, groups, 2) or \
+            parts.dtype != torch.float32 or not parts.is_contiguous() or \
+            parts.device != x.device:
+        raise ValueError("parts must be contiguous f32 (M, N, G, 2) on x's device")
+    plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path="two-pass")
+    y = torch.empty_like(x)
+    err = _k1_sharded_entries()["apply"](
+        x.data_ptr(), y.data_ptr(), parts.data_ptr(), parts.shape[0], gamma.data_ptr(),
+        beta.data_ptr(), n, s, c, groups, plan.rows, plan.chunks, plan.ty, eps,
+        int(apply_silu), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm apply launch failed: CUDA error {err}")
+    sharded_launches["apply"] += 1
+    return y
+
+
+def groupnorm_silu_sharded_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                                groups: int, eps: float, apply_silu: bool,
+                                mg) -> torch.Tensor:
+    """The kernel path of a height shard: the stats entry, one gather of
+    the (N, G, 2) partials over the model group ``mg``, the apply entry
+    (which merges them). Raises on anything the kernels do not take."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    part = shard_stats_cuda(x, groups)
+    with torch.no_grad():
+        parts = coll.gather_replicated(part[None], 0, mg).contiguous()
+    return shard_apply_cuda(x, parts, gamma, beta, groups, eps, apply_silu)
+
+
+class _GroupNormSiLUSharded(torch.autograd.Function):
+    """Forward: the sharded kernel path. Backward: autograd of the plain
+    sharded version, whose all_reduces carry their gradients."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, groups, eps, apply_silu, mg):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.cfg = (groups, eps, apply_silu, mg)
+        return groupnorm_silu_sharded_cuda(x, gamma, beta, groups, eps, apply_silu, mg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.profiler.record_function("groupnorm_silu_backward"), \
+                torch.enable_grad():
+            ins = [t.detach().requires_grad_(r) for t, r in zip((x, gamma, beta), need)]
+            y = groupnorm_silu_sharded_plain(*ins, *ctx.cfg)
+            wanted = [t for t, r in zip(ins, need) if r]
+            got = iter(torch.autograd.grad(y, wanted, g)) if wanted else iter(())
+        return tuple(next(got) if r else None for r in need) + (None,) * 4
+
+
+def groupnorm_silu_sharded(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                           groups: int, eps: float, apply_silu: bool, mg) -> torch.Tensor:
+    """GroupNorm(groups)(+SiLU) of a channels-last height shard, with the
+    statistics of the whole samples over the model group ``mg``. A CUDA
+    tensor goes through the kernel entries (or this raises); a CPU tensor
+    through the plain sharded version."""
+    if x.is_cuda:
+        return _GroupNormSiLUSharded.apply(x.contiguous(), gamma, beta, groups, eps,
+                                           apply_silu, mg)
+    if x.device.type == "cpu":
+        return groupnorm_silu_sharded_plain(x, gamma, beta, groups, eps, apply_silu, mg)
+    raise ValueError(f"groupnorm_silu_sharded: unsupported device {x.device}")

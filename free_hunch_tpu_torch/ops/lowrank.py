@@ -13,14 +13,29 @@ is written out:
   the JAX package runs this algebra at ``Precision.HIGHEST``.
 * ``append_pair`` writes at each row's own index ``k`` with plain indexing;
   ``compress`` runs only when some row would overflow its capacity.
+* Every contraction over d takes ``reduce``, applied to its partial sums:
+  the identity (the default) for a whole state, the model group's
+  ``all_reduce`` for a state whose ``diag`` and ``Ut`` hold one contiguous
+  block of d on each rank (``parallel/sharded_cov.py``; the JAX package
+  shards the same arrays with ``P(model)`` on their last axis and GSPMD
+  inserts the psums). ``M`` and ``k`` are then replicated, computed alike
+  on every rank from the reduced sums, which every rank receives with the
+  same bits: ``append_pair``'s host decision on ``k`` agrees across ranks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from free_hunch_tpu_torch import check_full_f32
+
+Reduce = Callable[[torch.Tensor], torch.Tensor]
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """The ``reduce`` of an unsharded state: the identity."""
+    return t
 
 
 class LowRank(NamedTuple):
@@ -47,10 +62,11 @@ def init(diag: torch.Tensor, capacity: int) -> LowRank:
     )
 
 
-def matvec(rep: LowRank, v: torch.Tensor) -> torch.Tensor:
-    """(diag(a) + U M U^T) @ v per row, v of shape (B, d)."""
+def matvec(rep: LowRank, v: torch.Tensor, reduce: Reduce = whole) -> torch.Tensor:
+    """(diag(a) + U M U^T) @ v per row, v of shape (B, d): on a d-sharded
+    state one K-length reduction."""
     check_full_f32(v)
-    t = torch.bmm(rep.Ut, v.unsqueeze(-1))
+    t = reduce(torch.bmm(rep.Ut, v.unsqueeze(-1)))
     t = torch.bmm(rep.M, t)
     core = torch.bmm(rep.Ut.transpose(1, 2), t).squeeze(-1)
     return rep.diag * v + core
@@ -70,13 +86,13 @@ def _inv_sym(a: torch.Tensor) -> torch.Tensor:
     return _sym(torch.linalg.inv(a))
 
 
-def inverse(rep: LowRank) -> LowRank:
+def inverse(rep: LowRank, reduce: Reduce = whole) -> LowRank:
     """Woodbury: (D + U M U^T)^-1 = D^-1 + (D^-1 U) Mi (D^-1 U)^T with
     Mi = -(M^-1 + U^T D^-1 U)^-1; inactive columns stay zero."""
     check_full_f32(rep.Ut)
     diag_inv = 1.0 / rep.diag
     Uit = rep.Ut * diag_inv[:, None, :]
-    inner = _inv_sym(rep.M) + _sym(torch.bmm(rep.Ut, Uit.transpose(1, 2)))
+    inner = _inv_sym(rep.M) + _sym(reduce(torch.bmm(rep.Ut, Uit.transpose(1, 2))))
     Mi = -_inv_sym(inner)
     return LowRank(diag=diag_inv, Ut=Uit, M=Mi, k=rep.k)
 
@@ -101,7 +117,7 @@ def dense(rep: LowRank) -> torch.Tensor:
     return torch.diag_embed(rep.diag) + rep.Ut.transpose(1, 2) @ rep.M @ rep.Ut
 
 
-def compress(rep: LowRank, target_rank: int) -> LowRank:
+def compress(rep: LowRank, target_rank: int, reduce: Reduce = whole) -> LowRank:
     """Optimal rank truncation of the low-rank part per row: keep the
     ``target_rank`` eigen-directions of U M U^T with the largest |eigenvalue|
     (with G = U^T U = L L^T and L^T M L = Q Lam Q^T, U M U^T = W Lam W^T
@@ -110,7 +126,7 @@ def compress(rep: LowRank, target_rank: int) -> LowRank:
     K = rep.capacity
     dtype, dev = rep.diag.dtype, rep.diag.device
     eye = torch.eye(K, dtype=dtype, device=dev)
-    G = _sym(torch.bmm(rep.Ut, rep.Ut.transpose(1, 2)))
+    G = _sym(reduce(torch.bmm(rep.Ut, rep.Ut.transpose(1, 2))))
     jitter = (G.diagonal(dim1=-2, dim2=-1).sum(-1) / K) * 1e-7 + 1e-30
     L = torch.linalg.cholesky(G + jitter[:, None, None] * eye)
     H = _sym(L.transpose(1, 2) @ rep.M @ L)
@@ -138,7 +154,7 @@ def select(mask: torch.Tensor, a: LowRank, b: LowRank) -> LowRank:
 
 
 def append_pair(rep: LowRank, col_a: torch.Tensor, w_a: torch.Tensor,
-                col_b: torch.Tensor, w_b: torch.Tensor) -> LowRank:
+                col_b: torch.Tensor, w_b: torch.Tensor, reduce: Reduce = whole) -> LowRank:
     """Representation of (A + w_a a a^T + w_b b b^T) per row.
 
     Columns are unit-normalised (norms absorbed into the inner weights). Rows
@@ -148,17 +164,18 @@ def append_pair(rep: LowRank, col_a: torch.Tensor, w_a: torch.Tensor,
     K = rep.capacity
     need = rep.k + 2 > K
     if bool(need.any()):
-        rep = select(need, compress(rep, K - 2), rep)
+        rep = select(need, compress(rep, K - 2, reduce), rep)
     k = rep.k
     tiny = torch.finfo(col_a.dtype).tiny
+    n2a, n2b = reduce(torch.stack([torch.sum(col_a * col_a, dim=-1),
+                                   torch.sum(col_b * col_b, dim=-1)]))
 
-    def norm_absorb(col, w):
-        n2 = torch.sum(col * col, dim=-1)
+    def norm_absorb(col, w, n2):
         nrm = torch.sqrt(torch.clamp(n2, min=tiny))
         return col / nrm[:, None], w * n2
 
-    ca, wa = norm_absorb(col_a, w_a)
-    cb, wb = norm_absorb(col_b, w_b)
+    ca, wa = norm_absorb(col_a, w_a, n2a)
+    cb, wb = norm_absorb(col_b, w_b, n2b)
     rows = torch.arange(k.shape[0], device=k.device)
     Ut = rep.Ut.clone()
     Ut[rows, k] = ca

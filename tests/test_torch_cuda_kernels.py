@@ -47,6 +47,43 @@ def test_kernel_matches_plain_on_the_card(shape, dtype, silu):
     torch.testing.assert_close(xs.grad, xr.grad, rtol=1e-4, atol=1e-5)
 
 
+# -- K1 on a height shard: the stats and apply entries (csrc/groupnorm.cu) -----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,silu,shards", [
+    ((2, 256, 256, 256), torch.bfloat16, True, 2),
+    ((8, 128, 256, 512), torch.bfloat16, True, 2),
+    ((2, 256, 256, 256), torch.float32, True, 2),
+    ((8, 8, 8, 1024), torch.bfloat16, False, 2),
+    ((8, 32, 32, 512), torch.bfloat16, True, 4),
+    ((3, 12, 7, 64), torch.float32, False, 3),
+], ids=["in_norm", "decoder_concat_half", "out_norm_f32", "attn_8x8", "32px_4", "ragged_3"])
+def test_shard_entries_and_merge_match_plain_on_the_card(shape, dtype, silu, shards):
+    """The rows of one tensor cut into ``shards`` height shards in one
+    process: each shard's stats entry, then each shard's apply entry on the
+    stacked partials (it merges them in shard order), against the plain
+    version of the whole tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n, h, w, c = shape
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    parts = [x[:, i * h // shards:(i + 1) * h // shards].contiguous() for i in range(shards)]
+    before = dict(gn.sharded_launches)
+    stats = torch.stack([gn.shard_stats_cuda(p) for p in parts])
+    y = torch.cat([gn.shard_apply_cuda(p, stats, g, b, 32, 1e-5, silu) for p in parts], dim=1)
+    torch.cuda.synchronize()
+    assert gn.sharded_launches == {k: v + shards for k, v in before.items()}
+    want = gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+        assert float((y.float() - want.float()).abs().max()) <= 2 * float(ulp)
+
+
 # -- K2: GroupNorm + affine + SiLU + int8 quantise (csrc/gn_quant.cu) ---------
 
 def _gn_quant_inputs(shape, dtype, gen, offset=0.5):

@@ -229,8 +229,8 @@ def test_parse_mesh_shape_defaults_to_the_one_card_of_a_process():
     assert mesh.parse_mesh_shape("data:-1") == {"data": 1}
 
 
-@pytest.mark.parametrize("spec,exc,match", [("data:4,model:2", NotImplementedError, "item 15"),
-                                            ("data:1,model:2", NotImplementedError, "model axis"),
+@pytest.mark.parametrize("spec,exc,match", [("data:4,model:2", ValueError, "item 15"),
+                                            ("data:1,model:2", ValueError, "model axis"),
                                             ("data:2", ValueError, "nproc_per_node=2")])
 def test_check_mesh_shape_refuses_what_one_process_cannot_drive(spec, exc, match):
     with pytest.raises(exc, match=match):

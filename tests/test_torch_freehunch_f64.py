@@ -109,7 +109,7 @@ def test_unknown_algebra_dtype_raises_and_cov_partition_still_does():
     top = _mechs(op="gaussian_blur")[1].forward_operator
     with pytest.raises(ValueError, match="algebra_dtype"):
         tmech.FreeHunch(cond_scaling=1.0, forward_operator=top, algebra_dtype="float16")
-    with pytest.raises(NotImplementedError, match="cov_partition"):
+    with pytest.raises(TypeError, match="cov_partition"):
         tmech.FreeHunch(cond_scaling=1.0, forward_operator=top, cov_partition=("data", None))
     assert tmech.FreeHunch(cond_scaling=1.0, forward_operator=top,
                            algebra_dtype="float32")._adt == torch.float32
