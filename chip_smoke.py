@@ -142,6 +142,38 @@ Phases, in order; any failure raises and exits non-zero:
    a control that must break the first call's limit. K1's sharded entry
    joins the ``kernels`` line as ``groupnorm_silu_sharded``, with
    ``max_abs_err_batch_2`` from every shard shape of 7b's batch.
+7c. the fused int8 torso on a height shard: two ranks of ``data:1,model:2``
+   (``torch.distributed.run ... --model-axis-part=7c``) build the 256 px
+   UNet with ``quant="int8"``, ``fused_gn_quant`` and remat; K2's shard
+   entries (stats, the gather, merge, apply; the flagged route forced
+   once with ``full``) against ``gn_silu_quant_sharded_plain`` at every
+   distinct shard shape of one forward (``K2S_SCALE_REL``,
+   ``K2S_CODE_FRAC``), timed against the unsharded K2 at the whole shape,
+   with the control (each rank's own abs-max) that must read outside the
+   scale limit; K3 at every distinct shape of one sharded forward and vjp
+   (the halo'd 3x3 sites with padding (0, 1)) bitwise its plain version,
+   timed against ``_int_mm`` on an im2col; then 7a's slice on this torso,
+   each guided call (``MA_INT8_STEPS`` Heun steps, 3 guided calls) against
+   rank 0's unsharded int8 replay from the same
+   inputs and state (``MA_INT8_CALL_REL_RMS``, equal CG counts), K1's, K2's
+   and K3's launches against the hooks, peak memory a rank.
+7d. ragged shards: three ranks of ``data:1,model:3``, the 256 px bf16 UNet
+   (256 rows as 96, 96, 64, down to 8 as 3, 3, 2): K1's count-weighted
+   shard entries against their twin at every ragged shard shape, timed;
+   one forward and one vjp at batch 2 against rank 0's unsharded model:
+   the denoiser at the schedule's first sigma (as 7b's first guided call)
+   and the raw UNet within ``MA_DENOISED_REL_RMS``, the raw UNet's vjp
+   within the larger of that and twice the bf16 torso's own distance from
+   f32 (measured in the run), K1's launches against the hooks.
+7e. DDNM+ through the driver: ``--conditioning_mechanism=ddnm
+   --mesh_shape=data:1,model:2`` on two bundled images (inpainting,
+   ``--num_steps=MA_DDNM_STEPS``, 10 DDNM+ steps) against the same command
+   as a world of one:
+   the final samples (``MA_DDNM_REL_RMS``), PSNR and SSIM (``MA_PSNR_ABS``,
+   ``MA_SSIM_ABS``), one journal, K1's launches against the hooks. K2's
+   shard entries join the ``kernels`` line as ``gn_silu_quant_sharded``,
+   K3 on the shards as ``int8_conv_halo``, and 7d's readings join
+   ``groupnorm_silu_sharded`` (``*_ragged``).
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -652,9 +684,11 @@ def check_gn_quant(shape, dtype, gen, reps=20):
                 bound_ms=max(bytes_ms, ops_ms))
 
 
-def im2col(xq, kh: int, kw: int, pad: int):
-    """(n*Ho*Wo, kh*kw*I) int8 patches in K3's K order, for the yardstick."""
-    xp = F.pad(xq, (0, 0, pad, pad, pad, pad))
+def im2col(xq, kh: int, kw: int, pad):
+    """(n*Ho*Wo, kh*kw*I) int8 patches in K3's K order, for the yardstick;
+    ``pad`` one int or (height, width)."""
+    ph, pw = q._pads(pad)
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
     cols = xp.unfold(1, kh, 1).unfold(2, kw, 1)          # (n, Ho, Wo, I, kh, kw)
     return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * xq.shape[-1])
 
@@ -2938,14 +2972,16 @@ class ShardedCallRecorder:
         self.keep_inputs = keep_inputs
 
     def init_state(self, batch, img_shape):
+        self.d = int(np.prod(img_shape))
         return self.mech.init_state(batch, img_shape)
 
     def _whole(self, state):
         from free_hunch_tpu_torch.parallel import sharded_cov
         cov, mg = state.cov, self.mech.model_group
         with torch.no_grad():
-            cov = cov._replace(diag=sharded_cov.gather_d(cov.diag, mg),
-                               Ut=self.coll.gather_replicated(cov.Ut, 2, mg))
+            d = self.d
+            cov = cov._replace(diag=sharded_cov.gather_d(cov.diag, mg, d),
+                               Ut=sharded_cov.gather_d(cov.Ut, mg, d))
         return state_to(state._replace(cov=cov), "cpu")
 
     def __call__(self, denoise, x_t, y, sigma, state):
@@ -2983,17 +3019,20 @@ def gn_shard_shapes(model, batch: int, res: int) -> Counter:
     return seen
 
 
-def check_gn_sharded(shape, dtype, silu, mg, reps=10) -> dict:
+def check_gn_sharded(shape, dtype, silu, mg, reps=10, rows=None) -> dict:
     """K1's sharded path (stats entry, the gather, the apply entry that
     merges) against ``groupnorm_silu_sharded_plain`` on this rank's rows of
-    one whole tensor, drawn alike on every rank; both ranks time it
-    together, or with ``reps=0`` only check it. Limit as ``check_gn``'s."""
+    one whole tensor, drawn alike on every rank; the ranks time it
+    together, or with ``reps=0`` only check it. ``rows``: each rank's rows
+    (default: this rank's on every rank). Limit as ``check_gn``'s."""
     from free_hunch_tpu_torch.parallel import collectives as coll
     n, h, w, c = shape
-    gen = torch.Generator(device="cuda").manual_seed(int(np.prod(shape)) + c)
-    full = (torch.randn((n, h * mg.model_size, w, c), generator=gen, device="cuda") * 2
+    rows = (h,) * mg.model_size if rows is None else tuple(rows)
+    gen = torch.Generator(device="cuda").manual_seed(n * sum(rows) * w * c + c)
+    full = (torch.randn((n, sum(rows), w, c), generator=gen, device="cuda") * 2
             + 0.5).to(dtype)
-    x = full[:, mg.model_index * h:(mg.model_index + 1) * h].contiguous()
+    start = sum(rows[:mg.model_index])
+    x = full[:, start:start + h].contiguous()
     g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
     b = torch.randn(c, generator=gen, device="cuda") * 0.1
     y = gn.groupnorm_silu_sharded_cuda(x, g, b, 32, 1e-5, silu, mg)
@@ -3007,7 +3046,7 @@ def check_gn_sharded(shape, dtype, silu, mg, reps=10) -> dict:
     if not err <= limit:
         raise AssertionError(f"sharded groupnorm {shape} {dtype}: max abs err {err} > {limit}")
     row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), silu=silu,
-               max_abs_err=err, limit=limit)
+               max_abs_err=err, limit=limit, rows=rows)
     if not reps:
         return row
     parts = coll.gather_replicated(gn.shard_stats_cuda(x)[None], 0, mg).contiguous()
@@ -3253,7 +3292,7 @@ def model_axis_sharded_phase(seed: int, smi: str) -> dict:
     return entry
 
 
-def no_halo(x: torch.Tensor, mg, dim: int = 2) -> torch.Tensor:
+def no_halo(x: torch.Tensor, mg, dim: int = 2, sizes=None) -> torch.Tensor:
     """The planted fault of phase 7's controls, in place of
     ``parallel/collectives.py::halo_rows``: zero rows where the
     neighbours' halo rows belong."""
@@ -3291,20 +3330,26 @@ class CallKeeper:
 @contextlib.contextmanager
 def keeping_samples(kept: dict):
     """Keep the guided calls (``CallKeeper``) and each batch's final sample
-    (``kept["x"]``) of the Evaluator's ``sample_loop`` in this process; the
-    rank probe enters it in a rank under ``FH_SMOKE_SAMPLES``."""
-    orig = teval.sample_loop
+    (``kept["x"]``) of the Evaluator's ``sample_loop``, or DDNM+'s final
+    sample of each batch, in this process; the rank probe enters it in a
+    rank under ``FH_SMOKE_SAMPLES``."""
+    orig, orig_ddnm = teval.sample_loop, teval_ddnm.ddnm_sample
 
     def keep(denoise, mech, *a, **k):
         res = orig(denoise, CallKeeper(mech, kept), *a, **k)
         kept["x"].append(res[0].float().cpu())
         return res
 
-    teval.sample_loop = keep
+    def keep_ddnm(*a, **k):
+        res = orig_ddnm(*a, **k)
+        kept["x"].append(res[0].float().cpu())
+        return res
+
+    teval.sample_loop, teval_ddnm.ddnm_sample = keep, keep_ddnm
     try:
         yield kept
     finally:
-        teval.sample_loop = orig
+        teval.sample_loop, teval_ddnm.ddnm_sample = orig, orig_ddnm
 
 
 def model_axis_driver_world(tmp: Path, argv: list, label: str, no_halo: bool = False) -> dict:
@@ -3461,6 +3506,697 @@ def model_axis_phase(seed: int, smi: str, control: bool = False) -> dict:
     return entry
 
 
+# -- phases 7c-7e: the model axis's remainders ----------------------------------
+
+# 7c, the fused int8 torso at model:2, each guided call teacher-forced
+# against rank 0's unsharded int8 replay. Sharded and unsharded quantise
+# with the same merged scales, but their GroupNorm statistics sum in
+# another order and cuDNN takes other algorithms for the first and last
+# convs on the half-height shapes, so bf16 rounding flips an int8 code now
+# and then, and a flipped code moves the per-sample abs-max and every later
+# code: the 32 px int8 reference (INT8_REF_LIMITS) reads 1-7 % for a 1e-6
+# change of the input. So each call is held to that reference's per-step
+# limit, 5e-2; a rank that quantises with its own abs-max moves each call's
+# input to every int8 layer by up to the ratio of the two scales.
+MA_INT8_CALL_REL_RMS = 5e-2
+# 7c's depth: 2 Heun steps, 3 guided calls (with 3 steps the whole script
+# read 541.9 s on an H100 80GB HBM3 at 700 W, and 695.7 s on a slower host;
+# PERF.md section 6)
+MA_INT8_STEPS = 2
+# K2's shard entries against their plain twin: codes equal except at ties
+# (one step, at most this share of the codes) and the scale to 1e-6
+# relative, as the unsharded K2 against its plain version (check_gn_quant)
+K2S_CODE_FRAC, K2S_SCALE_REL = 1e-4, 1e-6
+# 7d, ragged shards: data:1,model:3, the 256 px bf16 UNet (256 rows as 96,
+# 96, 64 down to 8 as 3, 3, 2) at batch 2, against rank 0's unsharded
+# model. The forwards, the denoiser's output at the schedule's first sigma
+# (7b's first guided call) and the raw UNet's at t = 10 and 700, within
+# MA_DENOISED_REL_RMS. The raw UNet's vjp within the larger of that and
+# twice the unsharded bf16 torso's own distance from the f32 one on the
+# same input, measured in the run: on the H100 the bf16 torso alone reads
+# 5.8e-3 from f32 on that vjp and 0.136 on the denoiser's vjp at sigma 80
+# (whose x - sigma F cancels), against 5.73e-3 and 0.0901 sharded against
+# unsharded (PERF.md section 6), so no bf16 vjp holds 5e-3, and the
+# denoiser's vjp is not taken. A shard without halos reads 0.08-0.28 on
+# each (32 px, the CPU in f32: tests/test_torch_chip_smoke_model_axis_remainders.py).
+MA_RAGGED_MESH, MA_RAGGED_WORLD, MA_RAGGED_BATCH = "data:1,model:3", 3, 2
+# 7e, DDNM+ through the driver at data:1,model:2 against the world of one,
+# --num_steps=5 (the entry doubles DDNM+'s steps, as the JAX script does:
+# 10): no guidance amplifies the denoiser's difference (7b's first call:
+# 1.64e-3 relative RMS), so the final samples are held to twice 7b's
+# denoiser limit, 1e-2
+MA_DDNM_STEPS, MA_DDNM_REL_RMS = 5, 1e-2
+GNQS_ENTRY = dict(name="gn_silu_quant_sharded", route="cuda",
+                  source="free_hunch_tpu_torch/csrc/gn_quant.cu",
+                  replaces="free_hunch_tpu/ops/pallas_gn_quant.py:140")
+K3H_ENTRY = dict(name="int8_conv_halo", route="cuda",
+                 source="free_hunch_tpu_torch/csrc/int8_conv.cu",
+                 replaces="free_hunch_tpu/ops/quant.py:96")
+
+
+def sharded_int8_shapes(model, batch: int, res: int, dev="cuda"):
+    """K2 shard shapes ((NHWC shape of this rank, the ranks' rows), dtype)
+    -> calls over one no-grad forward of a height-sharded int8 model, and
+    K3 shapes (input, weights, padding, output dtype) -> calls over that
+    forward and one vjp (forward with grad, remat recomputes and
+    pullbacks). The ranks' rows come from
+    the model's plan at the level of the call's width (W halves each
+    level), so every rank lists the same keys in the same order."""
+    k2, k3 = Counter(), Counter()
+    card = torch.device(dev).type == "cuda"
+    name2 = "gn_silu_quant_sharded_cuda" if card else "gn_silu_quant_sharded_plain"
+    orig2, orig3 = getattr(gq, name2), q.int8_conv_cuda
+
+    def rows_of(w):
+        return model._shard.plan.rows[int(round(np.log2(res / w)))]
+
+    forward = [True]  # K2 counts the no-grad forward's calls only
+
+    def rec2(x, g, b, groups, eps, mg, *a):
+        if forward[0]:
+            k2[(tuple(x.shape), rows_of(x.shape[2]), x.dtype)] += 1
+        return orig2(x, g, b, groups, eps, mg, *a)
+
+    def rec3(xq, wk, ascale, wscale, pad, out_dtype=torch.float32, stride=1):
+        k3[(tuple(xq.shape), tuple(wk.shape), q._pads(pad), out_dtype)] += 1
+        return orig3(xq, wk, ascale, wscale, pad, out_dtype, stride)
+
+    x = torch.zeros((batch, 3, res, res), device=dev)
+    t = torch.full((batch,), 500.0, device=dev)
+    setattr(gq, name2, rec2)
+    q.int8_conv_cuda = rec3
+    try:
+        with torch.no_grad():
+            model(x, t)
+        forward[0] = False
+        xg = x.clone().requires_grad_(True)
+        out = model(xg, t)
+        torch.autograd.grad(out, xg, torch.ones_like(out))
+        sync(dev)
+    finally:
+        setattr(gq, name2, orig2)
+        q.int8_conv_cuda = orig3
+    return k2, k3
+
+
+@contextlib.contextmanager
+def own_abs_max(on: bool):
+    """The planted fault of 7c's control, while ``on``: the max-merge of
+    ``parallel/collectives.py::all_max`` leaves each rank its own value."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    orig = coll.all_max
+    if on:
+        coll.all_max = lambda t, mg: t
+    try:
+        yield
+    finally:
+        coll.all_max = orig
+
+
+def check_gn_quant_sharded(shape, rows, dtype, mg, reps=5, dev="cuda") -> dict:
+    """K2's shard entries (stats, the gather, merge, apply; with ``full``
+    the flagged route: the full abs-max pass and the max-merge) against
+    ``gn_silu_quant_sharded_plain`` on this rank's rows of one whole tensor
+    drawn alike on every rank: codes equal except at ties (one step, at
+    most ``K2S_CODE_FRAC`` of them), scales within ``K2S_SCALE_REL``. The
+    control, the flagged route with each rank's own abs-max, is read, not
+    held (the phase holds it across the ranks). Times, the ranks at once:
+    the sharded path, each entry, the plain twin, the bytes bound. On the
+    CPU (a rehearsal) the plain twin stands in for the kernels."""
+    n, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(n * sum(rows) * w * c + 7)
+    full_x = (torch.randn((n, sum(rows), w, c), generator=gen, device=dev) * 2
+              + 0.5).to(dtype)
+    start = sum(rows[:mg.model_index])
+    x = full_x[:, start:start + h].contiguous()
+    g = torch.randn((n, c), generator=gen, device=dev) * 0.2 + 1
+    b = torch.randn((n, c), generator=gen, device=dev) * 0.2
+    wq, ws = gq.gn_silu_quant_sharded_plain(x, g, b, 32, 1e-5, mg)
+    row = dict(shape=shape, rows=rows, dtype=str(dtype).replace("torch.", ""))
+    for route, full in (("", False), ("_full", True), ("_control", True)):
+        with own_abs_max(route == "_control"):
+            if x.is_cuda:
+                xq, sc = gq.gn_silu_quant_sharded_cuda(x, g, b, 32, 1e-5, mg, full)
+            else:
+                xq, sc = gq.gn_silu_quant_sharded_plain(x, g, b, 32, 1e-5, mg)
+        sync(dev)
+        d = (xq.int() - wq.int()).abs()
+        row.update({f"code_diff{route}": int(d.max()) if d.numel() else 0,
+                    f"code_frac{route}": float((d > 0).float().mean()) if d.numel() else 0.0,
+                    f"scale_rel{route}": float(((sc - ws).abs() / ws).max())})
+    row["max_abs_err"] = float(max(row["code_diff"], row["code_diff_full"]))
+    for route in ("", "_full"):
+        if not (row[f"code_diff{route}"] <= 1 and row[f"code_frac{route}"] <= K2S_CODE_FRAC
+                and row[f"scale_rel{route}"] <= K2S_SCALE_REL):
+            raise AssertionError(f"sharded gn_silu_quant {shape} rows {rows}{route}: {row}")
+    if not reps:
+        return row
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    part = gq.shard_quant_stats_cuda(x)
+    parts = coll.gather_replicated(part[None], 0, mg).contiguous()
+    work, _, amax = gq.shard_quant_merge_cuda(x, parts, g, b)
+    nbytes = x.numel() * (x.element_size() + 1) + 2 * n * c * 4 + n * 4
+    row.update(
+        full_x=full_x, g=g, b=b,
+        ms=time_ms(lambda: gq.gn_silu_quant_sharded_cuda(x, g, b, 32, 1e-5, mg), reps),
+        stats_ms=time_ms(lambda: gq.shard_quant_stats_cuda(x), reps),
+        merge_ms=time_ms(lambda: gq.shard_quant_merge_cuda(x, parts, g, b), reps),
+        apply_ms=time_ms(lambda: gq.shard_quant_apply_cuda(x, work, amax, g, b), reps),
+        plain_ms=time_ms(lambda: gq.gn_silu_quant_sharded_plain(x, g, b, 32, 1e-5, mg),
+                         max(2, reps // 2)),
+        bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        ops_ms=GNQ_FLOPS_PER_ELEM * x.numel() / F32_FLOP_PER_S * 1e3)
+    return row
+
+
+def check_int8_conv_halo(xs, ws, pad, out_dtype, gen, reps=5) -> dict:
+    """K3 at one shape of a height shard (a halo'd 3x3 site takes padding
+    (0, 1)): the int32 sums bitwise ``int8_conv_plain``'s, the output its
+    epilogue's; eager ms, the plain version's and ``torch._int_mm``'s on an
+    im2col (the same sums; timed only), the bound."""
+    n, o, kh, kw = xs[0], ws[0], ws[1], ws[2]
+    xq = torch.randint(-127, 128, xs, generator=gen, device="cuda", dtype=torch.int8)
+    wk = torch.randint(-127, 128, ws, generator=gen, device="cuda", dtype=torch.int8)
+    asc = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+    wsc = torch.rand(o, generator=gen, device="cuda") * 1e-3 + 1e-4
+    acc = q.int8_conv_cuda(xq, wk, None, None, pad, torch.int32)
+    want = q.int8_conv_plain(xq, wk, None, None, pad, torch.int32)
+    out = q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype)
+    torch.cuda.synchronize()
+    if not (torch.equal(acc, want) and torch.equal(out, q._epilogue(want, asc, wsc,
+                                                                    out_dtype))):
+        raise AssertionError(f"int8_conv kernel {xs} x {ws} pad {pad}: not bitwise the "
+                             f"plain version")
+    cols = im2col(xq, kh, kw, pad)
+    bmat = wk.reshape(o, -1).t()
+    try:
+        library_ms = time_ms(lambda: torch._int_mm(cols, bmat), reps)
+    except RuntimeError:
+        library_ms = None
+    del cols
+    m = acc.shape[0] * acc.shape[1] * acc.shape[2]
+    ops = 2 * m * o * kh * kw * xs[-1]
+    nbytes = xq.numel() + wk.numel() + m * o * out.element_size() + 4 * (n + o)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OP_PER_S * 1e3
+    return dict(max_abs_err=0.0, library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                ms=time_ms(lambda: q.int8_conv_cuda(xq, wk, asc, wsc, pad, out_dtype), reps),
+                plain_ms=time_ms(lambda: q.int8_conv_plain(xq, wk, asc, wsc, pad, out_dtype),
+                                 1))
+
+
+class LaunchHooks:
+    """Counts, over a run, the module calls that launch the kernels of the
+    sharded int8 torso: GroupNorm32 calls (K1's shard entries), fused
+    QuantConv calls (``gn=``: K2's), calls of every int8 module and the
+    int8 pullbacks (K3's)."""
+
+    def __init__(self, model):
+        self.calls = Counter()
+
+        def hook(mod, args, kwargs):
+            if isinstance(mod, GroupNorm32):
+                self.calls["gn"] += 1
+            else:
+                self.calls["int8"] += 1
+                if kwargs.get("gn") is not None:
+                    self.calls["gnq"] += 1
+
+        self.hooks = [m.register_forward_pre_hook(hook, with_kwargs=True)
+                      for m in model.modules()
+                      if isinstance(m, (GroupNorm32, q.QuantConv, q.QuantDense))]
+        self.orig_pb = q._int8_pullback
+
+        def pullback(*a, **k):
+            self.calls["pullback"] += 1
+            return self.orig_pb(*a, **k)
+
+        q._int8_pullback = pullback
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+        q._int8_pullback = self.orig_pb
+        return dict(self.calls)
+
+
+def int8_axis_rank(outdir: Path, seed: int, dev: str = "cuda", setup: Path = None,
+                   batch: int = FULL_BATCH, steps: int = MA_INT8_STEPS) -> None:
+    """Phase 7c, one rank of ``torch.distributed.run --nproc_per_node=2``:
+    the 256 px fused-int8 UNet (``quant="int8"``, ``fused_gn_quant``,
+    remat) height-sharded over ``MA_MESH``. On the card, K2's shard entries
+    at every distinct shard shape of one forward against their plain twin
+    (with the flagged route and the per-rank abs-max control), timed against
+    the unsharded K2 at the whole shape (rank 0 alone), and K3 at every
+    distinct shape of one sharded forward and vjp against its plain
+    version. Then Free Hunch with the d-sharded state (7a's slice: gaussian
+    blur, capacity 34, batch 8, ``steps`` Heun steps), each kernel's
+    launches against the hooks; rank 0 replays each guided call with the
+    unsharded int8 model from the sharded run's inputs and gathered state.
+    Writes ``int8_rank<r>.pt``."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
+    from free_hunch_tpu_torch.parallel import dist, mesh
+    dist.init()
+    mg = mesh.make_model_groups(MA_MESH)
+    rank = dist.get_rank()
+    card = torch.device(dev).type == "cuda"
+    setup = SETUP_256 if setup is None else setup
+    qkw = dict(quant="int8", fused_gn_quant=True)
+    model, model_args = loading.load_model(
+        str(CKPT_256), str(setup), dtype=torch.bfloat16, init_random_if_missing=True,
+        rng_seed=seed, remat=True, device=dev, model_group=mg, **qkw)
+    res = model_args["image_size"]
+    out = dict(rank=rank, k2_rows=[], k3_rows=[])
+    k2_shapes, k3_shapes = sharded_int8_shapes(model, batch, res, dev)
+    rows = [(calls, check_gn_quant_sharded(shape, rws, dtype, mg, reps=5 if card else 0,
+                                           dev=dev))
+            for (shape, rws, dtype), calls in sorted(
+                k2_shapes.items(), key=lambda kv: kv[0][1:2] + (kv[0][0][2:],))]
+    out["k2_rows"] = rows
+    if card:
+        dist.barrier()
+        if rank == 0:  # the unsharded K2 at the same whole shapes, this rank alone
+            for _, r in rows:
+                r["unsharded_ms"] = time_ms(lambda: gq.gn_silu_quant_cuda(
+                    r["full_x"], r["g"], r["b"]), 5)
+        dist.barrier()
+        out["k2_rows"] = [(calls, {k: v for k, v in r.items() if k not in ("full_x", "g", "b")})
+                          for calls, r in rows]
+        del rows
+        gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+        out["k3_rows"] = [(calls, dict(xs=xs, ws=ws, pad=pad, out=str(od),
+                                       **check_int8_conv_halo(xs, ws, pad, od, gen)))
+                          for (xs, ws, pad, od), calls in sorted(
+                              k3_shapes.items(), key=lambda kv: -np.prod(kv[0][0]))]
+        torch.cuda.empty_cache()
+
+    precond = loading.wrap_precond(model, model_args)
+    op = slice_operator("gaussian_blur", res, dev, seed)
+    xs, s0 = schedule(precond, steps)
+    gen = torch.Generator().manual_seed(seed)
+    cond = (torch.rand((batch, 3, res, res), generator=gen) * 2 - 1).to(dev)
+    y = op.forward(cond, generator=torch.Generator().manual_seed(seed + 1))
+    noise = torch.randn((batch, 3, res, res), generator=gen).to(dev)
+    mech = ShardedCallRecorder(free_hunch(op, res, MA_CAP, "dct_diagonal", model_group=mg),
+                               dev, keep_inputs=True)
+    hooks = LaunchHooks(model)
+    sync(dev)
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    gn.sharded_launches.update(stats=0, apply=0)
+    gq.sharded_launches.update(stats=0, merge=0, apply=0)
+    zero_counts()
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    x, _, _ = edm.sample_loop(precond, mech, noise, y, xs, sigma0_scaled=s0,
+                              collect_diagnostics=True)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(k1=dict(gn.sharded_launches), k2=dict(gq.sharded_launches),
+                    **counts())
+    out.update(wall=wall, hooks=hooks.close(), launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if card else 0.0,
+               x=x.cpu().numpy(), collectives=dict(coll.counts),
+               calls=[{k: c[k] for k in ("ms", "x0", "niter", "collectives", "bytes")}
+                      for c in mech.calls])
+    inputs = [{k: c[k] for k in ("x_t", "sigma", "state")} for c in mech.calls]
+    state = model.state_dict()
+    del model, precond, mech
+    dist.barrier()
+    if rank == 0:  # each guided call unsharded from the sharded run's inputs
+        with torch.device(dev):
+            ref = create_model(dtype=torch.bfloat16, remat=True, **qkw, **model_args)
+        ref.load_state_dict(state)
+        del state
+        pre_ref = loading.wrap_precond(ref.eval().requires_grad_(False), model_args)
+        forced = free_hunch(op, res, MA_CAP, "dct_diagonal")
+        out["forced"] = []
+        for c in inputs:
+            x0, st = forced(pre_ref, c["x_t"].to(dev), y, c["sigma"], state_to(c["state"], dev))
+            out["forced"].append(dict(x0=x0.cpu().numpy(), niter=st.cg_niter))
+    torch.save(out, outdir / f"int8_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy()
+
+
+def ragged_axis_rank(outdir: Path, seed: int, dev: str = "cuda", setup: Path = None,
+                     batch: int = MA_RAGGED_BATCH, dtype=torch.bfloat16) -> None:
+    """Phase 7d, one rank of ``torch.distributed.run --nproc_per_node=3``:
+    the 256 px bf16 UNet with remat, height-sharded over ``MA_RAGGED_MESH``,
+    ragged at every level. On the card, K1's shard entries (whose apply
+    merges the ranks' partials weighted by their counts) against their plain
+    twin at every distinct ragged shard shape of one forward, timed; then
+    one forward and one vjp at ``batch``, K1's launches against the hooks;
+    rank 0 runs both unsharded. Writes ``ragged_rank<r>.pt``. ``dev``,
+    ``setup``, ``batch`` and ``dtype`` let the CPU rehearse it."""
+    from free_hunch_tpu_torch.parallel import dist, mesh
+    dist.init()
+    mg = mesh.make_model_groups(MA_RAGGED_MESH)
+    rank = dist.get_rank()
+    card = torch.device(dev).type == "cuda"
+    setup = SETUP_256 if setup is None else setup
+    model, model_args = loading.load_model(
+        str(CKPT_256), str(setup), dtype=dtype, init_random_if_missing=True,
+        rng_seed=seed, remat=True, device=dev, model_group=mg)
+    res = model_args["image_size"]
+    out = dict(rank=rank, gn_rows=[])
+    if card:
+        shapes = gn_shard_shapes(model, batch, res)
+        keys = sorted({(sh[0], int(round(np.log2(res / sh[2]))), sh[2], sh[3], dt, silu)
+                       for sh, dt, silu in shapes}, key=lambda k: (k[1], k[3], str(k[4]), k[5]))
+        calls = Counter()
+        for (sh, dt, silu), n in shapes.items():
+            calls[(sh[0], int(round(np.log2(res / sh[2]))), sh[2], sh[3], dt, silu)] += n
+        plan = model._shard.plan
+        for key in keys:
+            n, level, w, c, dt, silu = key
+            rows = plan.rows[level]
+            r = check_gn_sharded((n, rows[rank], w, c), dt, silu, mg, reps=5, rows=rows)
+            out["gn_rows"].append((calls[key], r))
+    rng = np.random.default_rng(seed + 5)
+    x = torch.as_tensor(rng.normal(size=(batch, 3, res, res)), dtype=torch.float32).to(dev)
+    t = torch.tensor([10.0, 700.0][:batch] + [500.0] * max(0, batch - 2)).to(dev)
+    w = torch.as_tensor(rng.normal(size=(batch, 6, res, res)), dtype=torch.float32).to(dev)
+    xs, _ = schedule(loading.wrap_precond(model, model_args), MA_STEPS)
+    sigma = float(xs["sigma_hat"][0])
+
+    def run(net):
+        """The denoiser's output at ``sigma`` from ``x * sigma`` (7b's first
+        guided call), then the raw UNet's output and vjp at t."""
+        with torch.no_grad():
+            d = loading.wrap_precond(net, model_args)(x * sigma, sigma)[0]
+            y = net(x, t)
+        xg = x.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad((net(xg, t) * w).sum(), xg)
+        return {k: v.float().cpu().numpy() for k, v in dict(d=d, y=y, gx=gx).items()}
+
+    hooks = [0]
+    handles = [m.register_forward_pre_hook(lambda mod, a: hooks.__setitem__(0, hooks[0] + 1))
+               for m in model.modules() if isinstance(m, GroupNorm32)]
+    gn.sharded_launches.update(stats=0, apply=0)
+    zero_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    out.update(run(model))
+    sync(dev)
+    out.update(wall=time.perf_counter() - t0, hooks=hooks[0], sigma=sigma,
+               launches=dict(gn.sharded_launches),
+               launches_unsharded=counts()["groupnorm_silu"], plan=model._shard.plan.rows)
+    for h in handles:
+        h.remove()
+    state = model.state_dict()
+    del model
+    dist.barrier()
+    if rank == 0:  # unsharded, and unsharded in f32 (the torso dtype's own distance)
+        for key, dt in (("ref", dtype), ("f32", torch.float32)):
+            if dt == dtype and key == "f32":
+                out[key] = out["ref"]
+                continue
+            with torch.device(dev):
+                ref = create_model(dtype=dt, remat=True, **model_args)
+            ref.load_state_dict(state)
+            out[key] = run(ref.eval().requires_grad_(False))
+            del ref
+    torch.save(out, outdir / f"ragged_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy()
+
+
+def run_ranks(part: str, world: int, seed: int) -> tuple:
+    """``torch.distributed.run --nproc_per_node=world chip_smoke.py
+    --model-axis-rank=<dir> --model-axis-part=part``: each rank's output
+    and the command's wall."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={world}", str(ROOT / "chip_smoke.py"),
+               f"--model-axis-rank={tmp}", f"--model-axis-part={part}", f"--seed={seed}"]
+        env = dict(os.environ, PYTHONPATH=python_path(ROOT), OMP_NUM_THREADS="2")
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=MA_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{part}: exit {run.returncode}\n{run.stdout[-4000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        name = {"7c": "int8", "7d": "ragged"}[part]
+        return [torch.load(tmp / f"{name}_rank{r}.pt", weights_only=False)
+                for r in range(world)], wall
+
+
+def int8_axis_failures(ranks: list) -> tuple:
+    """(readings, what breaks 7c's limits): each guided call's x0 against
+    rank 0's unsharded replay (``MA_INT8_CALL_REL_RMS``) with equal CG
+    counts, the ranks' x0 bitwise equal and finite, each rank's launches
+    against its hooks (K1's stats = apply = GroupNorm32 calls, K2's stats =
+    merge = apply = fused calls, K3 = int8 calls + pullbacks, no unsharded
+    K1 or K2), and the per-rank abs-max control outside K2's scale limit on
+    some rank at every K2 shape."""
+    r0 = ranks[0]
+    errs = [rel_rms_err(c["x0"], f["x0"]) for c, f in zip(r0["calls"], r0["forced"])]
+    niter = [c["niter"] for c in r0["calls"]]
+    ref_niter = [f["niter"] for f in r0["forced"]]
+    same = all(np.array_equal(c["x0"], c1["x0"])
+               for r in ranks[1:] for c, c1 in zip(r0["calls"], r["calls"]))
+    bad = [f"call {i}: x0 relative RMS {e:.3g}" for i, e in enumerate(errs)
+           if not e <= MA_INT8_CALL_REL_RMS]
+    if niter != ref_niter or len(errs) != len(r0["calls"]):
+        bad.append(f"CG niter {niter} vs {ref_niter}")
+    if not same or not np.isfinite(r0["x"]).all():
+        bad.append("the ranks' x0 differ, or the sample is not finite")
+    for r in ranks:
+        la, hk = r["launches"], r["hooks"]
+        if not (0 < la["k1"]["stats"] == la["k1"]["apply"] == hk.get("gn", 0)) or \
+                not (0 < la["k2"]["stats"] == la["k2"]["merge"] == la["k2"]["apply"]
+                     == hk.get("gnq", 0)) or \
+                la["int8_conv"] != hk.get("int8", 0) + hk.get("pullback", 0) or \
+                la["groupnorm_silu"] or la["gn_silu_quant"]:
+            bad.append(f"rank {r['rank']}: launches {la}, hooks {hk}")
+    control = [max(rk["k2_rows"][i][1]["scale_rel_control"] for rk in ranks)
+               for i in range(len(r0["k2_rows"]))]
+    if control and not min(control) > K2S_SCALE_REL:
+        bad.append(f"the per-rank abs-max control reads inside the scale limit: {control}")
+    return dict(errs=errs, niter=niter, ref_niter=ref_niter, same=same,
+                control=control), bad
+
+
+def int8_axis_phase(seed: int, smi: str) -> tuple:
+    """Phase 7c (``int8_axis_rank`` on two ranks); the limits, and the
+    kernels-line entries of K2's shard entries and of K3 on the shards."""
+    ranks, wall = run_ranks("7c", MA_WORLD, seed)
+    read, bad = int8_axis_failures(ranks)
+    r0 = ranks[0]
+    say(f"model axis 7c, torch.distributed.run --nproc_per_node={MA_WORLD} ({MA_MESH}, gloo, "
+        f"both ranks on the one card): 256 px fused-int8 UNet with remat, height-sharded; "
+        f"Free Hunch with the d-sharded state; gaussian blur; batch {FULL_BATCH}, "
+        f"{MA_INT8_STEPS} Heun steps ({len(r0['calls'])} guided calls), on {smi}; the command "
+        f"{wall:.3f} s")
+    say(f"  per guided call, sharded against rank 0's unsharded int8 replay from the same "
+        f"inputs and state: x0 relative RMS {[float(f'{e:.3g}') for e in read['errs']]} "
+        f"(limit {MA_INT8_CALL_REL_RMS:g}); CG niter {read['niter']} vs {read['ref_niter']}; "
+        f"the ranks' x0 bitwise equal: {read['same']}")
+    for r in ranks:
+        say(f"  rank {r['rank']}: wall per guided call {[round(c['ms'], 3) for c in r['calls']]}"
+            f" ms (run {r['wall']:.3f} s); peak {r['peak_gib']:.3f} GiB; collectives per call "
+            f"{[c['collectives'] for c in r['calls']]}, bytes sent per call "
+            f"{[c['bytes'] for c in r['calls']]}; launches {r['launches']}; hooks {r['hooks']}")
+    k2 = r0["k2_rows"]
+    e2 = sum_entry(GNQS_ENTRY, k2, ("ms", "stats_ms", "merge_ms", "apply_ms", "plain_ms",
+                                    "unsharded_ms"))
+    say(f"  K2's shard entries at the {len(k2)} distinct shard shapes of one forward (calls x "
+        f"ms; both ranks at once; limits: codes off by one at ties on at most "
+        f"{K2S_CODE_FRAC:g} of them, scale {K2S_SCALE_REL:g} relative):")
+    for calls, r in k2:
+        say(f"    {calls:3d} x {r['shape']} of rows {r['rows']} {r['dtype']}: codes off "
+            f"{r['code_diff']} on {r['code_frac']:.3g}, scale {r['scale_rel']:.3g}; flagged "
+            f"route {r['code_diff_full']} on {r['code_frac_full']:.3g}, scale "
+            f"{r['scale_rel_full']:.3g}; control (own abs-max) scale "
+            f"{max(rk['k2_rows'][k2.index((calls, r))][1]['scale_rel_control'] for rk in ranks):.3g}"
+            f"; sharded {r['ms']:.4f} (stats {r['stats_ms']:.4f}, merge {r['merge_ms']:.4f}, "
+            f"apply {r['apply_ms']:.4f}) plain {r['plain_ms']:.4f} unsharded K2 at the whole "
+            f"shape {r['unsharded_ms']:.4f} bound {max(r['bytes_ms'], r['ops_ms']):.4f}")
+    say(f"  sum over one forward's {sum(c for c, _ in k2)} calls: sharded {e2['ms']:.3f} ms "
+        f"(stats {e2['stats_ms']:.3f}, merge {e2['merge_ms']:.3f}, apply {e2['apply_ms']:.3f}), "
+        f"plain {e2['plain_ms']:.3f}, the unsharded K2 at the whole shapes "
+        f"{e2['unsharded_ms']:.3f}, bound {e2['bound_ms']:.3f} ms ({e2['bound_by']})")
+    k3 = r0["k3_rows"]
+    e3 = sum_entry(K3H_ENTRY, k3, ("ms", "plain_ms"))
+    lib = [r["library_ms"] for _, r in k3]
+    e3["library_ms"] = None if None in lib else sum(c * r["library_ms"] for c, r in k3)
+    say(f"  K3 at the {len(k3)} distinct shapes of one sharded forward and vjp, bitwise the "
+        f"plain version (calls x ms):")
+    for calls, r in k3:
+        say(f"    {calls:3d} x {r['xs']} x {r['ws']} pad {r['pad']} -> {r['out']}: "
+            f"{r['ms']:.4f} (_int_mm {r['library_ms']}) plain {r['plain_ms']:.3f} bound "
+            f"{max(r['bytes_ms'], r['ops_ms']):.4f}")
+    say(f"  K3 summed: {e3['ms']:.3f} ms, _int_mm {e3['library_ms']}, plain "
+        f"{e3['plain_ms']:.3f}, bound {e3['bound_ms']:.3f} ms ({e3['bound_by']})")
+    say(f"  control: K2's flagged route with each rank's own abs-max reads the scale "
+        f"{[float(f'{c:.3g}') for c in read['control']]} off the twin's (limit "
+        f"{K2S_SCALE_REL:g}; must be outside at every shape)")
+    if bad:
+        raise AssertionError(f"7c: {bad}")
+    keys = ["max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"]
+    k2e = {k: e2[k] for k in list(GNQS_ENTRY) + keys}
+    k2e.update(library_ms=None,
+               launches=r0["launches"]["k2"]["stats"], launches_merge=r0["launches"]["k2"]["merge"],
+               launches_apply=r0["launches"]["k2"]["apply"], stats_ms=e2["stats_ms"],
+               merge_ms=e2["merge_ms"], apply_ms=e2["apply_ms"],
+               unsharded_ms=e2["unsharded_ms"],
+               scale_rel=max(r["scale_rel"] for _, r in k2),
+               control_scale_rel=min(read["control"]))
+    k3e = {k: e3[k] for k in list(K3H_ENTRY) + keys}
+    k3e.update(launches=r0["launches"]["int8_conv"], library_ms=e3["library_ms"])
+    return k2e, k3e, {"launches_int8_axis": r0["launches"]["k1"]["stats"]}
+
+
+def ragged_axis_phase(seed: int, smi: str) -> dict:
+    """Phase 7d (``ragged_axis_rank`` on three ranks): the forward and the
+    vjp within ``MA_DENOISED_REL_RMS`` of rank 0's unsharded ones, the
+    ranks' outputs bitwise equal, K1's launches equal to the hooks; K1's
+    ragged readings for its kernels-line entry."""
+    ranks, wall = run_ranks("7d", MA_RAGGED_WORLD, seed)
+    r0 = ranks[0]
+    read, bad = ragged_axis_failures(ranks)
+    rows = [row for _, row in r0["gn_rows"]]
+    say(f"model axis 7d, torch.distributed.run --nproc_per_node={MA_RAGGED_WORLD} "
+        f"({MA_RAGGED_MESH}, gloo, the ranks on the one card): 256 px bf16 UNet with remat, "
+        f"rows a rank per level {r0['plan']}; one forward and one vjp at batch "
+        f"{MA_RAGGED_BATCH}, on {smi}; the command {wall:.3f} s")
+    say(f"  against rank 0's unsharded model, relative RMS: the denoiser at sigma "
+        f"{r0['sigma']:g} {read['d']:.3g} (limit {MA_DENOISED_REL_RMS:g}); the raw UNet at t "
+        f"= 10, 700 {read['y']:.3g} (limit {MA_DENOISED_REL_RMS:g}), its vjp "
+        f"{read['gx']:.3g} (limit {read['gx_limit']:.3g}); the unsharded bf16 torso against "
+        f"f32: denoiser {read['d_f32']:.3g}, raw {read['y_f32']:.3g}, raw vjp "
+        f"{read['gx_f32']:.3g}; the ranks' outputs bitwise equal: {read['same']}; per rank: "
+        f"wall {[round(r['wall'], 3) for r in ranks]} s, K1 sharded launches "
+        f"{[r['launches'] for r in ranks]}, hooks {[r['hooks'] for r in ranks]}")
+    e = sum_entry(GNS_ENTRY, r0["gn_rows"], ("ms", "stats_ms", "apply_ms", "plain_ms"))
+    for calls, r in r0["gn_rows"]:
+        say(f"    {calls:3d} x {r['shape']} of rows {r['rows']} {r['dtype']} silu={r['silu']}: "
+            f"err {r['max_abs_err']:.3g} (limit {r['limit']:.3g}) sharded {r['ms']:.4f} (stats "
+            f"{r['stats_ms']:.4f}, apply {r['apply_ms']:.4f}) plain {r['plain_ms']:.4f} bound "
+            f"{max(r['bytes_ms'], r['ops_ms']):.4f}")
+    say(f"  K1's count-weighted shard entries at the {len(rows)} distinct ragged shard shapes "
+        f"of one forward: max err / limit {max(r['max_abs_err'] / r['limit'] for r in rows):.3g}"
+        f"; summed over its {sum(c for c, _ in r0['gn_rows'])} calls {e['ms']:.3f} ms (stats "
+        f"{e['stats_ms']:.3f}, apply {e['apply_ms']:.3f}), plain {e['plain_ms']:.3f}, bound "
+        f"{e['bound_ms']:.3f} ms")
+    if bad:
+        raise AssertionError(f"7d: {bad}")
+    return dict(launches_ragged=r0["launches"]["stats"],
+                max_abs_err_ragged=max(r["max_abs_err"] for r in rows), ms_ragged=e["ms"],
+                plain_ms_ragged=e["plain_ms"], bound_ms_ragged=e["bound_ms"])
+
+
+def ragged_axis_failures(ranks: list) -> tuple:
+    """(readings, what breaks 7d's limits): rank 0's denoiser output and
+    raw UNet output within ``MA_DENOISED_REL_RMS`` of the unsharded ones,
+    the raw UNet's vjp within the larger of that and twice the unsharded
+    torso's distance from f32, the ranks' outputs bitwise equal, each
+    rank's K1 stats and apply launches equal to its GroupNorm32 hooks, no
+    unsharded K1 launch."""
+    r0 = ranks[0]
+    keys = ("d", "y", "gx")
+    read = {k: rel_rms_err(r0[k], r0["ref"][k]) for k in keys}
+    read.update({f"{k}_f32": rel_rms_err(r0["ref"][k], r0["f32"][k]) for k in keys})
+    read["same"] = all(np.array_equal(r[k], r0[k]) for r in ranks[1:] for k in keys)
+    read["gx_limit"] = max(MA_DENOISED_REL_RMS, 2 * read["gx_f32"])
+    bad = []
+    if not (read["d"] <= MA_DENOISED_REL_RMS and read["y"] <= MA_DENOISED_REL_RMS and
+            read["gx"] <= read["gx_limit"]):
+        bad.append(f"denoiser {read['d']}, raw UNet {read['y']}, its vjp {read['gx']} "
+                   f"(limit {read['gx_limit']})")
+    if not read["same"]:
+        bad.append("the ranks' outputs differ")
+    for r in ranks:
+        if not (0 < r["launches"]["stats"] == r["launches"]["apply"] == r["hooks"]) or \
+                r["launches_unsharded"]:
+            bad.append(f"rank {r['rank']}: K1 launches {r['launches']}, hooks {r['hooks']}")
+    return read, bad
+
+
+def ddnm_axis_failures(ma: dict, one: dict, one_x: list) -> tuple:
+    """(readings, what breaks 7e's limits): rank 0's final samples within
+    ``MA_DDNM_REL_RMS`` of the world of one's (``one_x``), PSNR and SSIM
+    within ``MA_PSNR_ABS`` and ``MA_SSIM_ABS`` of its (``one``), both
+    images counted once in one journal, the ranks' samples bitwise equal,
+    each rank's K1 stats and apply launches equal to its hooks."""
+    probes, s0 = ma["probes"], ma["samples"][0]
+    read = dict(final=rel_rms_err(np.concatenate(s0["x"]), np.concatenate(one_x)),
+                same=all(len(r["x"]) == len(s0["x"]) and
+                         all(np.array_equal(a, b) for a, b in zip(r["x"], s0["x"]))
+                         for r in ma["samples"][1:]),
+                d_psnr=abs(ma["results"]["psnr"] - one["psnr"]),
+                d_ssim=abs(ma["results"]["ssim"] - one["ssim"]))
+    bad = []
+    if not (read["final"] <= MA_DDNM_REL_RMS and read["d_psnr"] <= MA_PSNR_ABS and
+            read["d_ssim"] <= MA_SSIM_ABS):
+        bad.append(f"samples {read['final']}, |dPSNR| {read['d_psnr']}, "
+                   f"|dSSIM| {read['d_ssim']}")
+    if ma["results"]["images"] != MA_DRIVER_IMAGES or \
+            ma["journals"] != ["metrics_rank00.jsonl"] or not read["same"] or not s0["x"]:
+        bad.append(f"images {ma['results']['images']}, journals {ma['journals']}, same "
+                   f"{read['same']}")
+    for p in probes:
+        sh = p["sharded"]
+        if not (0 < sh["stats"] == sh["apply"] == p["hooks"]) or p["launches"] != 0:
+            bad.append(f"rank {p['rank']}: K1 sharded launches {sh}, hooks {p['hooks']}, "
+                       f"unsharded {p['launches']}")
+    return read, bad
+
+
+def ddnm_axis_phase(seed: int, smi: str) -> dict:
+    """Phase 7e: ``torch.distributed.run --nproc_per_node=2 -m
+    free_hunch_tpu_torch.generate_conditional --conditioning_mechanism=ddnm
+    --mesh_shape=data:1,model:2`` on two bundled images (inpainting, a
+    fresh mask per image, ``--num_steps=MA_DDNM_STEPS``), then the same command as
+    a world of one: the final samples within ``MA_DDNM_REL_RMS``, PSNR and
+    SSIM within ``MA_PSNR_ABS`` and ``MA_SSIM_ABS``, one journal, the
+    ranks' samples bitwise equal, each rank's K1 launches equal to its
+    hooks."""
+    argv = driver_args(seed) + [
+        "--conditioning_mechanism=ddnm", "--operator_name=inpainting",
+        f"--num_steps={MA_DDNM_STEPS}", f"--total_images={MA_DRIVER_IMAGES}",
+        f"--batch_size={MA_DRIVER_IMAGES}", f"--num_other_images_to_save={MA_DRIVER_IMAGES}"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ma = model_axis_driver_world(tmp, argv, "ddnm_model_axis")
+        t0 = time.perf_counter()
+        with keeping_samples({"d": [], "x0": [], "x": [], "niter": []}) as kept:
+            one = cmdline(argv + [f"--outdir={tmp / 'one'}"], device="cuda")
+        wall_one = time.perf_counter() - t0
+    probes = ma["probes"]
+    read, bad = ddnm_axis_failures(ma, one, [t.numpy() for t in kept["x"]])
+    final, same, d_psnr, d_ssim = read["final"], read["same"], read["d_psnr"], read["d_ssim"]
+    say(f"model axis 7e, torch.distributed.run --nproc_per_node={MA_WORLD} generate_conditional "
+        f"--conditioning_mechanism=ddnm --mesh_shape={MA_MESH}, {MA_DRIVER_IMAGES} bundled "
+        f"images, inpainting, --num_steps={MA_DDNM_STEPS} ({2 * MA_DDNM_STEPS} DDNM+ steps), on "
+        f"{smi}: the command {ma['wall']:.3f} s, "
+        f"the world of one {wall_one:.3f} s; journals {ma['journals']}")
+    say(f"  final samples against the world of one's, relative RMS {final:.4g} (limit "
+        f"{MA_DDNM_REL_RMS:g}); |dPSNR| {d_psnr:.4g} dB (limit {MA_PSNR_ABS}), |dSSIM| "
+        f"{d_ssim:.4g} (limit {MA_SSIM_ABS}); the ranks' samples bitwise equal: {same}; per "
+        f"rank: peak {[round(p['peak_gib'], 3) for p in probes]} GiB, K1 sharded launches "
+        f"{[p['sharded'] for p in probes]} (hooks {[p['hooks'] for p in probes]}), unsharded "
+        f"{[p['launches'] for p in probes]}")
+    if bad:
+        raise AssertionError(f"7e: {bad}")
+    return {f"launches_driver_ddnm_model_axis_rank{p['rank']}": p["sharded"]["stats"]
+            for p in probes}
+
+
+def model_axis_remainders(seed: int, smi: str) -> tuple:
+    """Phases 7c-7e, each timed; returns the kernels-line entries of K2's
+    shard entries and of K3 on the shards, and K1's readings."""
+    with timed_phase("7c int8 torso on a height shard"):
+        k2e, k3e, k1 = int8_axis_phase(seed, smi)
+    with timed_phase("7d ragged shards"):
+        k1.update(ragged_axis_phase(seed, smi))
+    with timed_phase("7e DDNM+ under a model axis"):
+        k1.update(ddnm_axis_phase(seed, smi))
+    return k2e, k3e, k1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -3491,8 +4227,10 @@ def main(argv=None) -> int:
                     "width on the bundled images, K1 at its norms; no result lines")
     ap.add_argument("--model-axis", action="store_true", help="phase 7 alone: the model axis "
                     "(data:1,model:2) as two ranks on the card, the sharded guided path "
-                    "against the unsharded one and the driver; no result lines")
+                    "against the unsharded one and the driver, then 7c-7e; no result lines")
     ap.add_argument("--model-axis-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--model-axis-part", default="7a", choices=("7a", "7c", "7d"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
@@ -3505,8 +4243,9 @@ def main(argv=None) -> int:
               f"{fht.__file__}", file=sys.stderr)
         return 2
 
-    if args.model_axis_rank:  # one rank of phase 7a, started by torch.distributed.run
-        model_axis_rank(Path(args.model_axis_rank), args.seed)
+    if args.model_axis_rank:  # one rank of phase 7a, 7c or 7d (torch.distributed.run)
+        {"7a": model_axis_rank, "7c": int8_axis_rank, "7d": ragged_axis_rank}[
+            args.model_axis_part](Path(args.model_axis_rank), args.seed)
         return 0
 
     t_start = time.perf_counter()
@@ -3536,6 +4275,8 @@ def main(argv=None) -> int:
         return 0
     if args.model_axis:
         model_axis_phase(args.seed, smi, control=True)
+        model_axis_remainders(args.seed, smi)
+        say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")
         say(f"chip_smoke --model-axis wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     t0 = time.perf_counter()
@@ -3618,6 +4359,8 @@ def main(argv=None) -> int:
         gn_entry.update(vae_phase(args.seed, smi))
     with timed_phase("7 model axis"):
         gns_entry = model_axis_phase(args.seed, smi)
+    k2s_entry, k3h_entry, k1_readings = model_axis_remainders(args.seed, smi)
+    gns_entry.update(k1_readings)
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
@@ -3633,12 +4376,16 @@ def main(argv=None) -> int:
                     ("int8_conv", k3_entry["launches"]),
                     ("groupnorm_silu_sharded", gns_entry["launches"]),
                     *(("groupnorm_silu_sharded", v) for k, v in gns_entry.items()
-                      if k.startswith("launches_driver_model_axis"))):
+                      if k.startswith(("launches_driver", "launches_int8_axis",
+                                       "launches_ragged"))),
+                    ("gn_silu_quant_sharded", k2s_entry["launches"]),
+                    ("int8_conv_halo", k3h_entry["launches"])):
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its main path")
     say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")
     say(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [gn_entry, k2_entry, k3_entry, gns_entry]}))
+    say(json.dumps({"kernels": [gn_entry, k2_entry, k3_entry, gns_entry, k2s_entry,
+                                k3h_entry]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -172,24 +172,28 @@ __global__ void __launch_bounds__(1024)
   if (threadIdx.x == 0 && ty == 0) amax_partial[(size_t)n * P + p] = m;
 }
 
-// blockDim = (C / V, TY); grid = (P, N).
+// blockDim = (C / V, TY); grid = (P, N). A flagged sample's scale comes
+// from its PA partial maxima in amax_partial; the flags are read from
+// flags_in where it is given (a height shard's, set by its merge entry),
+// else taken from the candidate as gnq_amax_kernel takes them.
 template <typename T>
 __global__ void __launch_bounds__(1024)
     gnq_quant_kernel(const T* __restrict__ x, const float2* __restrict__ stats,
                      const float* __restrict__ gamma, const float* __restrict__ beta,
                      const float* __restrict__ cand, int Q, int full,
-                     const float* __restrict__ amax_partial, int8_t* __restrict__ xq,
-                     float* __restrict__ scale, int S, int C, int G, int rows_per_chunk) {
+                     const int* __restrict__ flags_in, const float* __restrict__ amax_partial,
+                     int PA, int8_t* __restrict__ xq, float* __restrict__ scale, int S, int C,
+                     int G, int rows_per_chunk) {
   constexpr int V = Vec<T>::N;
   __shared__ float red[1024];
-  const int n = blockIdx.y, p = blockIdx.x, P = gridDim.x;
+  const int n = blockIdx.y, p = blockIdx.x;
   const int ty = threadIdx.y, TY = blockDim.y;
   const int tid = ty * blockDim.x + threadIdx.x, nthreads = blockDim.x * TY;
   float m = candidate(cand, n, Q, red);
-  if (full || !(m >= kLobe)) {
+  if (flags_in != nullptr ? flags_in[n] != 0 : (full || !(m >= kLobe))) {
     // a flagged sample: the full pass's partial maxima
     m = 0.f;
-    for (int k = tid; k < P; k += nthreads) m = fmaxf(m, amax_partial[(size_t)n * P + k]);
+    for (int k = tid; k < PA; k += nthreads) m = fmaxf(m, amax_partial[(size_t)n * PA + k]);
     m = block_max(m, red);
   }
   const float s = fmaxf(m, 1e-12f) / 127.f;
@@ -250,7 +254,168 @@ int launch(const void* x, const float* gamma, const float* beta, float* scratch,
                                                  amax_partial, S, C, G, rows);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   gnq_quant_kernel<T><<<grid, block, 0, stream>>>(xt, stats, gamma, beta, cand, Q, full,
-                                                  amax_partial, xq, scale, S, C, G, rows);
+                                                  nullptr, amax_partial, P, xq, scale, S, C, G,
+                                                  rows);
+  return (int)cudaGetLastError();
+}
+
+// -- a height shard ----------------------------------------------------------
+// Each rank holds some rows of every sample (maybe none). The partials of a
+// shard, one row of 3G + 2C floats a sample: (mean, M2, count) of each
+// group, then (min, max) of x in each channel (+inf, -inf for no rows,
+// which the caller writes without a launch).
+
+// blockDim = (L, G); grid = (N). The shard's group partials, merged over
+// its chunks as gnq_finalize_kernel merges them, and its channels'
+// extremes over its chunks.
+__global__ void gnq_shard_stats_kernel(const float2* __restrict__ partial,
+                                       const float2* __restrict__ extrema,
+                                       float* __restrict__ part, int S, int C, int G, int P,
+                                       int rows_per_chunk) {
+  __shared__ float scratch[3 * 1024];
+  __shared__ float2 s_stats[1024];
+  const int n = blockIdx.x, cg = C / G;
+  merge_groups<true>(partial, scratch, s_stats, n, S, G, P, rows_per_chunk, cg, 0.f);
+  float* out = part + (size_t)n * (3 * G + 2 * C);
+  if (threadIdx.x == 0) {
+    const int g = threadIdx.y;
+    out[3 * g] = s_stats[g].x;
+    out[3 * g + 1] = s_stats[g].y;
+    out[3 * g + 2] = (float)S * (float)cg;
+  }
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const float2* ex = extrema + (size_t)n * P * C;
+  for (int c = tid; c < C; c += nthreads) {
+    float lo = INFINITY, hi = -INFINITY;
+    for (int p = 0; p < P; ++p) {
+      const float2 e = ex[(size_t)p * C + c];
+      lo = fminf(lo, e.x);
+      hi = fmaxf(hi, e.y);
+    }
+    out[3 * G + 2 * c] = lo;
+    out[3 * G + 2 * c + 1] = hi;
+  }
+}
+
+// blockDim = 256; grid = (N). The M ranks' partials of sample n, parts
+// (M, N, 3G + 2C): the group statistics merged in rank order, each
+// weighted by its count, into (mean, rstd); each channel's extremes over
+// the ranks; from them, with the device functions the quantise pass
+// applies, the sample's candidate abs-max (as gnq_finalize_kernel's, but
+// from the whole sample's extremes of each channel).
+__global__ void gnq_shard_merge_kernel(const float* __restrict__ parts, int M,
+                                       const float* __restrict__ gamma,
+                                       const float* __restrict__ beta,
+                                       float2* __restrict__ stats, float* __restrict__ cand,
+                                       int C, int G, float eps) {
+  __shared__ float2 s_stats[1024];
+  __shared__ float red[1024];
+  const int n = blockIdx.x, N = gridDim.x, cg = C / G, row = 3 * G + 2 * C;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  for (int g = tid; g < G; g += nthreads) {
+    float na = 0.f, ma = 0.f, qa = 0.f;
+    for (int r = 0; r < M; ++r) {
+      const float* v = parts + ((size_t)r * N + n) * row + 3 * g;
+      chan_merge(na, ma, qa, v[2], v[0], v[1]);
+    }
+    s_stats[g] = make_float2(ma, 1.f / sqrtf(qa / na + eps));
+    stats[(size_t)n * G + g] = s_stats[g];
+  }
+  __syncthreads();
+  const float* gm = gamma + (size_t)n * C;
+  const float* bt = beta + (size_t)n * C;
+  float m = 0.f;
+  for (int c = tid; c < C; c += nthreads) {
+    float lo = INFINITY, hi = -INFINITY;
+    for (int r = 0; r < M; ++r) {
+      const float* e = parts + ((size_t)r * N + n) * row + 3 * G + 2 * c;
+      lo = fminf(lo, e[0]);
+      hi = fmaxf(hi, e[1]);
+    }
+    const float2 st = s_stats[c / cg];
+    m = fmaxf(m, fmaxf(abs_y(lo, st.x, st.y, gm[c], bt[c]), abs_y(hi, st.x, st.y, gm[c], bt[c])));
+  }
+  m = block_max(m, red);
+  if (tid == 0) cand[n] = m;
+}
+
+// blockDim = 256; grid = (N). A flagged sample's abs-max over this shard,
+// from the P partial maxima of gnq_amax_kernel; 0 for an unflagged one.
+__global__ void gnq_shard_amax_kernel(const int* __restrict__ flags,
+                                      const float* __restrict__ amax_partial,
+                                      float* __restrict__ amax, int P) {
+  __shared__ float red[1024];
+  const int n = blockIdx.x;
+  float m = 0.f;
+  if (flags[n])
+    for (int k = threadIdx.x; k < P; k += blockDim.x)
+      m = fmaxf(m, amax_partial[(size_t)n * P + k]);
+  m = block_max(m, red);
+  if (threadIdx.x == 0) amax[n] = m;
+}
+
+template <typename T>
+int launch_shard_stats(const void* x, float* part, float* scratch, int N, int S, int C, int G,
+                       int rows, int P, int ty, int lanes, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  float2* partial = reinterpret_cast<float2*>(scratch);
+  float2* extrema = partial + (size_t)N * P * G;
+  const size_t smem = partials_floats(true, ty, C) * sizeof(float);
+  int err = allow_shared(gn_stats_kernel<T, true>, smem);
+  if (err != 0) return err;
+  gn_stats_kernel<T, true><<<dim3(P, N), dim3(C / V, ty), smem, stream>>>(
+      static_cast<const T*>(x), partial, extrema, S, C, G, rows);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  gnq_shard_stats_kernel<<<N, dim3(lanes, G), 0, stream>>>(partial, extrema, part, S, C, G, P,
+                                                           rows);
+  return (int)cudaGetLastError();
+}
+
+// The work buffer of a shard's merge and apply entries: stats (N * G
+// float2), candidates (N), partial maxima (N * P), the shard's abs-max (N),
+// flags (N int32).
+struct ShardWork {
+  float2* stats;
+  float* cand;
+  float* amax_partial;
+  float* amax;
+  int* flags;
+  ShardWork(float* w, int N, int G, int P)
+      : stats(reinterpret_cast<float2*>(w)),
+        cand(w + 2 * (size_t)N * G),
+        amax_partial(cand + N),
+        amax(amax_partial + (size_t)N * P),
+        flags(reinterpret_cast<int*>(amax + N)) {}
+};
+
+template <typename T>
+int launch_shard_merge(const void* x, const float* parts, int M, const float* gamma,
+                       const float* beta, float* work, int N, int S, int C, int G, int rows,
+                       int P, int ty, float eps, int full, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  ShardWork w(work, N, G, P);
+  gnq_shard_merge_kernel<<<N, 256, 0, stream>>>(parts, M, gamma, beta, w.stats, w.cand, C, G,
+                                                eps);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  gnq_amax_kernel<T><<<dim3(P, N), dim3(C / V, ty), 0, stream>>>(
+      static_cast<const T*>(x), w.stats, gamma, beta, w.cand, 1, full, w.flags, w.amax_partial,
+      S, C, G, rows);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  gnq_shard_amax_kernel<<<N, 256, 0, stream>>>(w.flags, w.amax_partial, w.amax, P);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_shard_apply(const void* x, const float* gamma, const float* beta, float* work,
+                       const float* amax, int8_t* xq, float* scale, int N, int S, int C, int G,
+                       int rows, int P, int ty, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  ShardWork w(work, N, G, P);
+  gnq_quant_kernel<T><<<dim3(P, N), dim3(C / V, ty), 0, stream>>>(
+      static_cast<const T*>(x), w.stats, gamma, beta, w.cand, 1, 0, w.flags, amax, 1, xq, scale,
+      S, C, G, rows);
   return (int)cudaGetLastError();
 }
 
@@ -278,4 +443,58 @@ extern "C" int fh_gn_silu_quant_forward(const void* x, const float* gamma, const
                                  rows_per_chunk, P, ty, lanes, Q, eps, full, cluster, s);
   return launch<float>(x, gamma, beta, scratch, xq, scale, N, S, C, G, rows_per_chunk, P, ty,
                        lanes, Q, eps, full, cluster, s);
+}
+
+// The entries of a height shard (ops/gn_quant.py::gn_silu_quant_sharded),
+// bound with ctypes; the caller validates as for the entry above, gathers
+// the shards' partials between the stats and the merge entry, and
+// max-merges the flagged samples' abs-max (`work`'s amax) between the
+// merge and the apply entry.
+//   stats: part (N, 3G + 2C) f32 from the statistics pass over the shard's
+//     S rows (scratch: N * P * (G + C) float2). Not called for S = 0.
+//   merge: from parts (M, N, 3G + 2C), the merged statistics, candidates,
+//     flags (`full` flags every sample) and the flagged samples' abs-max
+//     over this shard into work (ShardWork; N * (2G + P + 3) floats). With
+//     S = 0 the caller passes P = 1: the grids keep their shape, the passes
+//     read no rows.
+//   apply: the codes and the scale, a flagged sample's from amax (N).
+// Each returns the first CUDA error code, 0 on success.
+extern "C" int fh_gn_silu_quant_shard_stats(const void* x, float* part, float* scratch, int N,
+                                            int S, int C, int G, int rows_per_chunk, int P,
+                                            int ty, int lanes, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();
+  if (is_bf16)
+    return launch_shard_stats<__nv_bfloat16>(x, part, scratch, N, S, C, G, rows_per_chunk, P,
+                                             ty, lanes, s);
+  return launch_shard_stats<float>(x, part, scratch, N, S, C, G, rows_per_chunk, P, ty, lanes,
+                                   s);
+}
+
+extern "C" int fh_gn_silu_quant_shard_merge(const void* x, const float* parts, int M,
+                                            const float* gamma, const float* beta, float* work,
+                                            int N, int S, int C, int G, int rows_per_chunk,
+                                            int P, int ty, float eps, int full, int is_bf16,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();
+  if (is_bf16)
+    return launch_shard_merge<__nv_bfloat16>(x, parts, M, gamma, beta, work, N, S, C, G,
+                                             rows_per_chunk, P, ty, eps, full, s);
+  return launch_shard_merge<float>(x, parts, M, gamma, beta, work, N, S, C, G, rows_per_chunk, P,
+                                   ty, eps, full, s);
+}
+
+extern "C" int fh_gn_silu_quant_shard_apply(const void* x, const float* gamma, const float* beta,
+                                            float* work, const float* amax, int8_t* xq,
+                                            float* scale, int N, int S, int C, int G,
+                                            int rows_per_chunk, int P, int ty, int is_bf16,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();
+  if (is_bf16)
+    return launch_shard_apply<__nv_bfloat16>(x, gamma, beta, work, amax, xq, scale, N, S, C, G,
+                                             rows_per_chunk, P, ty, s);
+  return launch_shard_apply<float>(x, gamma, beta, work, amax, xq, scale, N, S, C, G,
+                                   rows_per_chunk, P, ty, s);
 }

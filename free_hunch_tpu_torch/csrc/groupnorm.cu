@@ -26,25 +26,37 @@
 //      launch bounds hold it to 64 registers, so four 256-thread blocks fit
 //      an SM. Its SiLU takes __expf and an approximate division (within 2
 //      f32 ulps, far inside the bf16 rounding of the output; gn_stats.cuh).
-// A height shard (the entries at the end) runs 1 and 2 with (mean, M2) out,
-// and after the caller's gather gn_apply_merged_kernel, which merges the
-// ranks' statistics in each block before it applies them.
+// A height shard (the entries at the end) runs 1 and 2 with (mean, M2,
+// count) out, and after the caller's gather gn_apply_merged_kernel, which
+// merges the ranks' statistics, each weighted by its own count, in each
+// block before it applies them. Shards may differ in size; a shard of no
+// rows launches nothing and its partial is (0, 0, 0), which the merge
+// skips.
 
 #include "gn_cluster.cuh"
 #include "gn_stats.cuh"
 
 namespace {
 
-// blockDim = (L, G); grid = (N). Writes (mean, rstd) per (sample, group),
-// or with M2 the (mean, M2) of the sample's rows here (a height shard).
+// blockDim = (L, G); grid = (N). Writes (mean, rstd) per (sample, group)
+// as float2, or with M2 the (mean, M2, count) of the sample's rows here (a
+// height shard) as three floats.
 template <bool M2>
-__global__ void gn_finalize_kernel(const float2* __restrict__ partial,
-                                   float2* __restrict__ stats, int S, int G, int P,
-                                   int rows_per_chunk, int cg, float eps) {
+__global__ void gn_finalize_kernel(const float2* __restrict__ partial, float* __restrict__ stats,
+                                   int S, int G, int P, int rows_per_chunk, int cg, float eps) {
   __shared__ float scratch[3 * 1024];
   __shared__ float2 s_stats[1024];
   merge_groups<M2>(partial, scratch, s_stats, blockIdx.x, S, G, P, rows_per_chunk, cg, eps);
-  if (threadIdx.x == 0) stats[(size_t)blockIdx.x * G + threadIdx.y] = s_stats[threadIdx.y];
+  if (threadIdx.x != 0) return;
+  const size_t i = (size_t)blockIdx.x * G + threadIdx.y;
+  const float2 st = s_stats[threadIdx.y];
+  if (M2) {
+    stats[3 * i] = st.x;
+    stats[3 * i + 1] = st.y;
+    stats[3 * i + 2] = (float)S * (float)cg;
+  } else {
+    reinterpret_cast<float2*>(stats)[i] = st;
+  }
 }
 
 // The apply pass of block (p, n): rows of chunk p of sample n through the
@@ -97,14 +109,14 @@ __global__ void __launch_bounds__(1024)
 }
 
 // The apply pass of a height shard: each block first merges the M ranks'
-// (mean, M2) of its sample's groups, parts (M, N, G) float2 of `count`
-// elements each, in rank order with chan_merge (as merge_groups merges
-// chunks), into (mean, rstd) in shared memory, then applies them.
+// (mean, M2, count) of its sample's groups, parts (M, N, G, 3) f32, in rank
+// order with chan_merge, each weighted by its own count (as merge_groups
+// merges chunks), into (mean, rstd) in shared memory, then applies them.
 // blockDim = (C / V, TY); grid = (P, N); dynamic shared memory G float2.
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(1024)
-    gn_apply_merged_kernel(const T* __restrict__ x, const float2* __restrict__ parts, int M,
-                           float count, float eps, const float* __restrict__ gamma,
+    gn_apply_merged_kernel(const T* __restrict__ x, const float* __restrict__ parts, int M,
+                           float eps, const float* __restrict__ gamma,
                            const float* __restrict__ beta, T* __restrict__ y, int S, int C,
                            int G, int rows_per_chunk) {
   extern __shared__ float2 s_merged[];
@@ -113,8 +125,8 @@ __global__ void __launch_bounds__(1024)
   for (int g = tid; g < G; g += nthreads) {
     float na = 0.f, ma = 0.f, qa = 0.f;
     for (int r = 0; r < M; ++r) {
-      const float2 v = parts[((size_t)r * N + n) * G + g];
-      chan_merge(na, ma, qa, count, v.x, v.y);
+      const float* v = parts + (((size_t)r * N + n) * G + g) * 3;
+      chan_merge(na, ma, qa, v[2], v[0], v[1]);
     }
     s_merged[g] = make_float2(ma, 1.f / sqrtf(qa / na + eps));
   }
@@ -123,9 +135,9 @@ __global__ void __launch_bounds__(1024)
 }
 
 // The statistics pass and the finalize: (mean, rstd) per (sample, group)
-// into stats, or with M2 the (mean, M2) of this tensor's rows.
+// into stats, or with M2 the (mean, M2, count) of this tensor's rows.
 template <typename T, bool M2>
-int launch_stats(const void* x, float2* partial, float2* stats, int N, int S, int C, int G,
+int launch_stats(const void* x, float2* partial, float* stats, int N, int S, int C, int G,
                  int rows, int P, int ty, int lanes, float eps, cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   const dim3 grid(P, N), block(C / V, ty);
@@ -168,20 +180,19 @@ int launch(const void* x, void* y, const float* gamma, const float* beta, float*
                                              rows, P, ty, eps, 0, stream);
   float2* partial = reinterpret_cast<float2*>(scratch);
   float2* stats = partial + (size_t)N * P * G;
-  const int err = launch_stats<T, false>(x, partial, stats, N, S, C, G, rows, P, ty, lanes, eps,
-                                         stream);
+  const int err = launch_stats<T, false>(x, partial, reinterpret_cast<float*>(stats), N, S, C, G,
+                                         rows, P, ty, lanes, eps, stream);
   if (err != 0) return err;
   return launch_apply<T>(x, y, stats, gamma, beta, N, S, C, G, rows, P, ty, apply_silu, stream);
 }
 
 template <typename T, bool SILU>
-int launch_apply_merged(const void* x, void* y, const float2* parts, int M, float count,
-                        float eps, const float* gamma, const float* beta, int N, int S, int C,
-                        int G, int rows, int P, int ty, cudaStream_t stream) {
+int launch_apply_merged(const void* x, void* y, const float* parts, int M, float eps,
+                        const float* gamma, const float* beta, int N, int S, int C, int G,
+                        int rows, int P, int ty, cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   gn_apply_merged_kernel<T, SILU><<<dim3(P, N), dim3(C / V, ty), G * sizeof(float2), stream>>>(
-      static_cast<const T*>(x), parts, M, count, eps, gamma, beta, static_cast<T*>(y), S, C, G,
-      rows);
+      static_cast<const T*>(x), parts, M, eps, gamma, beta, static_cast<T*>(y), S, C, G, rows);
   return (int)cudaGetLastError();
 }
 
@@ -211,23 +222,23 @@ extern "C" int fh_groupnorm_forward(const void* x, void* y, const float* gamma,
 // The two halves of the two-pass path, for a height shard of a sample
 // (ops/groupnorm.py::groupnorm_silu_sharded), which gathers the shards'
 // statistics across ranks between them. The stats entry writes this
-// tensor's (mean, M2) per (sample, group) into stats (N * G float2), from
-// the chunk partials in scratch (N * P * G float2); the apply entry takes
-// the M ranks' gathered (mean, M2), parts (M, N, G) float2, merges them in
-// rank order in each block (gn_apply_merged_kernel) and writes y. Every
-// shard holds the same S rows a sample. Returns the first CUDA error code,
-// 0 on success.
+// tensor's (mean, M2, count) per (sample, group) into stats (N * G * 3
+// f32), from the chunk partials in scratch (N * P * G float2); the apply
+// entry takes the M ranks' gathered (mean, M2, count), parts (M, N, G, 3)
+// f32, merges them in rank order, weighted by their counts, in each block
+// (gn_apply_merged_kernel) and writes y. Shards may hold different numbers
+// of rows; the caller launches neither entry for a shard of none (S = 0).
+// Returns the first CUDA error code, 0 on success.
 extern "C" int fh_groupnorm_stats(const void* x, float* stats, float* scratch, int N, int S,
                                   int C, int G, int rows_per_chunk, int P, int ty, int lanes,
                                   int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();
   float2* partial = reinterpret_cast<float2*>(scratch);
-  float2* out = reinterpret_cast<float2*>(stats);
   if (is_bf16)
-    return launch_stats<__nv_bfloat16, true>(x, partial, out, N, S, C, G, rows_per_chunk, P, ty,
-                                             lanes, 0.f, s);
-  return launch_stats<float, true>(x, partial, out, N, S, C, G, rows_per_chunk, P, ty, lanes,
+    return launch_stats<__nv_bfloat16, true>(x, partial, stats, N, S, C, G, rows_per_chunk, P,
+                                             ty, lanes, 0.f, s);
+  return launch_stats<float, true>(x, partial, stats, N, S, C, G, rows_per_chunk, P, ty, lanes,
                                    0.f, s);
 }
 
@@ -237,17 +248,15 @@ extern "C" int fh_groupnorm_apply(const void* x, void* y, const float* parts, in
                                   int apply_silu, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();
-  const float2* pt = reinterpret_cast<const float2*>(parts);
-  const float count = (float)S * (float)(C / G);
   if (is_bf16)
-    return apply_silu ? launch_apply_merged<__nv_bfloat16, true>(x, y, pt, M, count, eps, gamma,
+    return apply_silu ? launch_apply_merged<__nv_bfloat16, true>(x, y, parts, M, eps, gamma,
                                                                 beta, N, S, C, G, rows_per_chunk,
                                                                 P, ty, s)
-                      : launch_apply_merged<__nv_bfloat16, false>(x, y, pt, M, count, eps,
-                                                                 gamma, beta, N, S, C, G,
+                      : launch_apply_merged<__nv_bfloat16, false>(x, y, parts, M, eps, gamma,
+                                                                 beta, N, S, C, G,
                                                                  rows_per_chunk, P, ty, s);
-  return apply_silu ? launch_apply_merged<float, true>(x, y, pt, M, count, eps, gamma, beta, N,
-                                                       S, C, G, rows_per_chunk, P, ty, s)
-                    : launch_apply_merged<float, false>(x, y, pt, M, count, eps, gamma, beta, N,
-                                                        S, C, G, rows_per_chunk, P, ty, s);
+  return apply_silu ? launch_apply_merged<float, true>(x, y, parts, M, eps, gamma, beta, N, S,
+                                                       C, G, rows_per_chunk, P, ty, s)
+                    : launch_apply_merged<float, false>(x, y, parts, M, eps, gamma, beta, N, S,
+                                                        C, G, rows_per_chunk, P, ty, s);
 }

@@ -7,7 +7,10 @@
 // :139-141, :153-155, :229-231 are the same function as a 1x1 convolution
 // over (n, t, 1, c)). One kernel serves every forward, the int8 pullback
 // (flipped, I/O-swapped weights with padding k-1-pad) and the dense sites:
-//   acc[n, oh, ow, o] = sum_{r, s, i} x[n, oh+r-pad, ow+s-pad, i] * w[o, r, s, i]
+//   acc[n, oh, ow, o] = sum_{r, s, i} x[n, oh+r-ph, ow+s-pw, i] * w[o, r, s, i]
+// with a height padding ph and a width padding pw: (1, 1) for a 3x3 site,
+// (0, 1) on a height shard whose rows already carry a one-row halo from each
+// neighbour (ops/quant.py), which then needs no zero-padded copy.
 //   out = acc                                  (out_mode 0, int32)
 //   out = f32(acc) * (ascale[n] * wscale[o])   (out_mode 1 f32, 2 bf16 RNE)
 // The epilogue multiplies in that association, without contraction, so it
@@ -109,7 +112,7 @@ struct ConvArgs {
   const float* wscale;   // (O,)
   void* out;             // (N, Ho, Wo, O), written directly when splits == 1
   int* ws;               // split-K partial sums, one (N, Ho, Wo, O) int32 slab per split
-  int H, W, I, Ho, Wo, O, kw, pad, M, K, out_mode, k_blocks, splits, m_tiles, n_tiles;
+  int H, W, I, Ho, Wo, O, kw, pad_h, pad_w, M, K, out_mode, k_blocks, splits, m_tiles, n_tiles;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -370,7 +373,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const bool kok = k < a.K;
         const int tap = kok ? k / a.I : 0;
         const int r = tap / a.kw;
-        const int dr = r - a.pad, ds = tap - r * a.kw - a.pad;
+        const int dr = r - a.pad_h, ds = tap - r * a.kw - a.pad_w;
         const int delta = (dr * a.W + ds) * a.I + (k - tap * a.I);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -550,8 +553,9 @@ extern "C" int fh_int8_conv_weight_map(const void* w, int O, int K, int bn, void
 // stride 1), types, contiguity and 16-byte alignment, lays the weights out
 // as (O, kh, kw, I), plans the cut and allocates the output and, for
 // splits > 1, the workspace `ws` of `splits` int32 slabs of the output's
-// size. `shape` is {N, H, W, I, O, kh, kw, pad, bn, splits, grid}: the
-// input and weight shapes, the tile width (256 or 128), the K splits and
+// size. `shape` is {N, H, W, I, O, kh, kw, pad_h, pad_w, bn, splits, grid}:
+// the input and weight shapes, the height and width padding, the tile width
+// (256 or 128), the K splits and
 // the persistent grid (min(units, SMs)); `wmap` the weights' map from
 // fh_int8_conv_weight_map at that tile width. Returns 0 on success, else
 // the first CUDA error code or a negative code of this file.
@@ -559,7 +563,8 @@ extern "C" int fh_int8_conv_forward(const int* shape, const void* wmap, const vo
                                     const float* ascale, const float* wscale, void* out, void* ws,
                                     int out_mode, void* stream_ptr) {
   const int N = shape[0], H = shape[1], W = shape[2], I = shape[3], O = shape[4], kh = shape[5],
-            kw = shape[6], pad = shape[7], bn = shape[8], splits = shape[9], grid = shape[10];
+            kw = shape[6], pad_h = shape[7], pad_w = shape[8], bn = shape[9], splits = shape[10],
+            grid = shape[11];
   ConvArgs a;
   a.x = static_cast<const int8_t*>(x);
   a.ascale = ascale;
@@ -569,11 +574,12 @@ extern "C" int fh_int8_conv_forward(const int* shape, const void* wmap, const vo
   a.H = H;
   a.W = W;
   a.I = I;
-  a.Ho = H + 2 * pad - kh + 1;
-  a.Wo = W + 2 * pad - kw + 1;
+  a.Ho = H + 2 * pad_h - kh + 1;
+  a.Wo = W + 2 * pad_w - kw + 1;
   a.O = O;
   a.kw = kw;
-  a.pad = pad;
+  a.pad_h = pad_h;
+  a.pad_w = pad_w;
   a.M = N * a.Ho * a.Wo;
   a.K = kh * kw * I;
   a.out_mode = out_mode;

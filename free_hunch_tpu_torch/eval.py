@@ -32,13 +32,16 @@ splits the world into N model groups of M ranks
 (``parallel/mesh.py::make_model_groups``): the images are strided over the
 groups and every draw is keyed on the group's data index, so the ranks of
 a group hold the same batch, noise and masks; the UNet shards its height
-and Free Hunch its state's d over the group (the JAX driver's
-``spatial_partition`` and ``cov_partition``; here the group itself). The
-group's model rank 0 writes its PNGs and journal and counts its images
-and FID features in the totals; on resume every rank of the group replays
-that journal. DDNM+ does not take a model axis (it
-bypasses the covariance, and the JAX driver never partitions it), nor
-does the int8 torso: both raise (ROADMAP item 15b).
+(any model size: shards may be uneven; the int8 torso too) and Free Hunch
+its state's d over the group (the JAX driver's ``spatial_partition`` and
+``cov_partition``; here the group itself). DDNM+ (``eval_ddnm.py``, an
+``Evaluator``, as the JAX DDNM+ driver is) runs the same height-sharded
+epsilon UNet, whose output every rank gets whole, with its SVD algebra
+replicated on the ranks of the group; it has no covariance to shard.
+``quant="int8_static"`` calibrates the unsharded twin, as the JAX driver
+does, identically on every rank of a group. The group's model rank 0
+writes its PNGs and journal and counts its images and FID features in the
+totals; on resume every rank of the group replays that journal.
 
 Fault injection, for the kill-and-resume tests: with the option
 ``fault_kill_after_batches=k`` and the environment variable
@@ -71,7 +74,7 @@ from free_hunch_tpu_torch.models.precond import PRECONDS
 from free_hunch_tpu_torch.operators import get_operator
 from free_hunch_tpu_torch.operators import masks as mask_mod
 from free_hunch_tpu_torch.parallel import dist, get_rank, get_world_size
-from free_hunch_tpu_torch.parallel.mesh import ITEM_15B, make_model_groups
+from free_hunch_tpu_torch.parallel.mesh import make_model_groups
 from free_hunch_tpu_torch.samplers.edm import (prepare_schedule, required_cov_capacity,
                                                sample_loop)
 from free_hunch_tpu_torch.utils.dynamic import construct_class_by_name
@@ -139,10 +142,6 @@ class Evaluator:
         # the rank that writes its group's images and journal, and whose
         # images and features count in the totals
         self.writer = self.mg.model_index == 0
-        if self.mg.sharded and opts.get("conditioning_mechanism") == "ddnm":
-            raise ValueError(f"mesh_shape={opts.get('mesh_shape')!r}: DDNM+ takes no model "
-                             f"axis (it bypasses the covariance; the JAX driver never "
-                             f"partitions it); {ITEM_15B}")
         self.device = dist.rank_device(self.device)
         self.seed = int(opts.get("seed", 0))
 
@@ -209,14 +208,16 @@ class Evaluator:
         if mech_name != "ddnm":
             # ddnm has no conditioning mechanism: eval_ddnm.DDNMEvaluator
             # supplies its own batch function
-            self._mech_builder = self._mechanism_builder(mech_name)
+            self._mech_builder = self._mechanism_builder(mech_name, self.mg)
         if self._quant == "int8_static":
             self._calibrate_static_qscales()
         self._install_codecs()
         self._lpips = lpips_fn("vgg", weights_path=self.lpips_weights, device=self.device)
         self._install_fid()
 
-    def _mechanism_builder(self, mech_name: str):
+    def _mechanism_builder(self, mech_name: str, model_group: Any = None):
+        """The mechanism for an operator; Free Hunch's state sharded over
+        ``model_group`` (the driver's ``self.mg``; None: whole)."""
         opts = self.opts
         mech_cls = choose_conditioning_mechanism(mech_name)
         mkw = dict(cond_scaling=opts.get("cond_scaling", 1.0),
@@ -231,7 +232,7 @@ class Evaluator:
         if mech_name == "online_covariance":
             mkw.update(transport_mean_bound=opts.get("transport_mean_bound"),
                        guidance_update_bound=opts.get("guidance_update_bound"),
-                       model_group=self.mg,
+                       model_group=model_group,
                        init_denoiser_variance=1.0,
                        init_noise_variance=float(self.sigma0_scaled) ** 2,
                        data_dim=3 * self.res * self.res,
@@ -254,7 +255,11 @@ class Evaluator:
         activation-scale table (``models/calibrate.py``) by replaying the
         sampler on synthetic batches, and install the static preconditioner.
         The table is cached beside the checkpoint, keyed by architecture,
-        schedule, operator and margin."""
+        schedule, operator and margin. Under a model axis every rank of the
+        group calibrates the unsharded twin (the JAX driver's
+        ``calibrate_qscales`` builds its model without ``spatial_partition``)
+        with an unsharded mechanism, from the group's draws, so the ranks
+        build the same table; world rank 0 alone writes the cache."""
         from free_hunch_tpu_torch.models import calibrate as cal
         opts = self.opts
         if self._mech_builder is None:
@@ -273,6 +278,7 @@ class Evaluator:
             op = self._template_op
             shape = (self.batch_size, 3, self.res, self.res)
             state = self.model.state_dict()
+            build = self._mechanism_builder(opts.get("conditioning_mechanism", "dps"))
             for d in range(n_draws):
                 gen = self._generator("calibrate", d)
                 cond = (torch.rand(shape, generator=gen) * 2 - 1).to(self.device)
@@ -280,14 +286,15 @@ class Evaluator:
                     y = op.forward(cond, noiseless=False, generator=gen)
                 noise = randn(shape, gen, device=self.device)
                 t = cal.calibrate_qscales(
-                    self._model_args, state, self._mech_builder(op), noise, y, self.xs,
+                    self._model_args, state, build(op), noise, y, self.xs,
                     self.sigma0_scaled, gen, dtype=self.model.cfg.dtype, margin=margin,
                     precond_kind=self._precond_kind, device=self.device)
                 qs = t if qs is None else cal.merge_qscales(qs, t)
-            try:
-                cal.save_qscales(cache, *qs)
-            except OSError:
-                pass
+            if self.rank == 0:
+                try:
+                    cal.save_qscales(cache, *qs)
+                except OSError:
+                    pass
         self.precond = wrap_precond(self.model, self._model_args, self._precond_kind,
                                     qscales=qs)
 

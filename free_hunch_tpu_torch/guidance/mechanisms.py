@@ -273,7 +273,8 @@ class FreeHunch(ConditioningMechanism):
     ``:449-466``) is ``model_group`` here (``parallel/mesh.py::
     make_model_groups``; ``parallel/sharded_cov.py``): a group of more than
     one rank shards the state's d over its ranks. Each rank keeps its
-    d-block of ``diag`` and ``Ut`` (the DCT prior's too), the basis change
+    d-block of ``diag`` and ``Ut`` (the DCT prior's too; the blocks as even
+    as the model size allows where it does not divide d), the basis change
     runs the DCT on the whole replicated image and keeps the block, and the
     way back gathers the blocks and inverts; every contraction over d is
     one all_reduce. The
@@ -356,7 +357,7 @@ class FreeHunch(ConditioningMechanism):
     def _from_basis(self, v, img_shape):
         mg = self._group()
         if mg is not None:
-            v = sharded_cov.gather_d(v, mg)
+            v = sharded_cov.gather_d(v, mg, int(np.prod(img_shape)))
         v = v.reshape((-1,) + tuple(img_shape))
         if self.image_base_covariance.startswith("dct"):
             v = idct_2d(v)
@@ -390,10 +391,10 @@ class FreeHunch(ConditioningMechanism):
             cg_niter=0, cg_resnorm=torch.zeros((), device=dev),
             cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
 
-    def _whole(self, v):
+    def _whole(self, v, d: int):
         """A (B, d) vector whole: gathered from the d-blocks when sharded."""
         mg = self._group()
-        return v if mg is None else sharded_cov.gather_d(v, mg)
+        return v if mg is None else sharded_cov.gather_d(v, mg, d)
 
     def cov_matvec_pixel(self, cov, v):
         """Sigma_0 @ v for pixel-space (B, C, H, W) v (the CG callback)."""
@@ -493,7 +494,8 @@ class FreeHunch(ConditioningMechanism):
                                    maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
                                    return_info=True, precondition=self.cg_precondition,
                                    stall_iters=self.cg_stall_iters,
-                                   cov_dct_diag=self._whole(lowrank.diag_of(cov))
+                                   cov_dct_diag=self._whole(lowrank.diag_of(cov),
+                                                            x0_a[0].numel())
                                    if dct_basis else None,
                                    rtol_floor=self.rtol_floor,
                                    track_best=self.cg_track_best,

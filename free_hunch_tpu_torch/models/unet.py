@@ -40,19 +40,23 @@ state-dict names (``input_blocks.1.0.in_layers.0.weight``, ...,
   package pins it to ``P(data, model, None, None)`` over an ambient mesh
   and GSPMD inserts the collectives. Here they are written out
   (``parallel/collectives.py``): the replicated input is sliced to the
-  rank's rows; every 3x3 conv (stride 1 and 2) gets a one-row halo from
-  each neighbour, zeros at the image's edges as its padding has;
-  ``avg_pool2d`` and the nearest upsample stay local; every
-  ``GroupNorm32`` merges its statistics over the group
-  (``ops/groupnorm.py::groupnorm_silu_sharded``, K1's stats and apply
-  entries on the card); attention gathers its keys and values; the output
-  is gathered to whole images on every rank, as the JAX model hands the
-  guidance algebra replicated H and W. Every rank of the group must hold
-  the same weights, input and timesteps. The gradient with respect to the
-  input is whole; parameter gradients are each rank's part. The model
-  size must divide every level's height and leave an even shard before
-  each stride-2 step (JAX pads a ragged shard instead), and the int8 torso
-  does not shard: both raise, and are ROADMAP item 15b.
+  rank's rows by the plan of ``parallel/mesh.py::plan_shards`` (any model
+  size: shards may be uneven, and a rank may hold no rows, where GSPMD pads
+  a ragged shard; every boundary before a stride-2 step is even); every
+  3x3 conv (stride 1 and 2) gets a one-row halo from the nearest rank
+  above and below that has rows, zeros at the image's edges as its padding
+  has; ``avg_pool2d`` and the nearest upsample stay local; every
+  ``GroupNorm32`` merges its statistics over the group, each shard's
+  weighted by its count (``ops/groupnorm.py::groupnorm_silu_sharded``, K1's
+  stats and apply entries on the card); attention gathers its keys and
+  values; the output is gathered to whole images on every rank, as the JAX
+  model hands the guidance algebra replicated H and W. The int8 torso
+  shards too: its dynamic scales are the whole samples' (max-merged over
+  the group), the fused route runs K2's shard entries, and a 3x3 site
+  exchanges halos of its int8 codes and runs K3 on them
+  (``ops/quant.py``). Every rank of the group must hold the same weights,
+  input and timesteps. The gradient with respect to the input is whole;
+  parameter gradients are each rank's part.
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ from torch.utils.checkpoint import checkpoint
 from free_hunch_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_sharded
 from free_hunch_tpu_torch.ops.quant import QuantConv, QuantDense, _QuantSite
 from free_hunch_tpu_torch.parallel import collectives as coll
-from free_hunch_tpu_torch.parallel.mesh import ITEM_15B
+from free_hunch_tpu_torch.parallel.mesh import plan_shards
 
 QUANT_MODES = {"int8": "dynamic", "int8_static": "static", "int8_calib": "calib"}
 
@@ -102,22 +106,21 @@ class UNetConfig:
             raise ValueError(f"quant={self.quant!r} not in {sorted(QUANT_MODES)}")
 
 
-def check_shard_heights(cfg: UNetConfig, height: int, model_size: int) -> None:
-    """Raise a ValueError naming the level where ``model_size`` does not
-    divide the level's height, or leaves an odd shard before a stride-2
-    step (the JAX package pads such a ragged shard: ROADMAP item 15b)."""
-    h = height
-    for level in range(len(cfg.channel_mult)):
-        if h % model_size:
-            raise ValueError(f"height shard: a model axis of {model_size} does not "
-                             f"divide the height {h} of level {level} ({ITEM_15B}: ragged "
-                             f"shards)")
-        if level != len(cfg.channel_mult) - 1:
-            if (h // model_size) % 2:
-                raise ValueError(f"height shard: level {level}'s shard of "
-                                 f"{h // model_size} rows is odd before its stride-2 step "
-                                 f"({ITEM_15B}: ragged shards)")
-            h //= 2
+class _Shard:
+    """A height shard, shared by every module of the torso: the model group
+    ``mg`` and ``plan``, the ranks' rows at every level
+    (``parallel/mesh.py::plan_shards``) for the input height of the forward
+    being run."""
+
+    def __init__(self, mg):
+        self.mg, self.plan = mg, None
+
+    def rows(self, level: int):
+        return self.plan.rows[level]
+
+    def site(self, level: int):
+        """What a quantised conv of this level takes: (mg, the ranks' rows)."""
+        return self.mg, self.rows(level)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
@@ -156,17 +159,25 @@ class GroupNorm32(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d, mg=None) -> torch.Tensor:
-    """A torso conv; on a height shard (``mg``, its model group) a 3x3 one
-    takes a one-row halo from each neighbour in place of its padding in
-    height."""
-    if isinstance(conv, QuantConv):
-        return conv(x)      # casts to the torso dtype itself
+def _conv(x: torch.Tensor, conv: nn.Conv2d, shard: Optional[_Shard] = None,
+          level: int = 0) -> torch.Tensor:
+    """A torso conv of an input at ``level``; on a height shard a 3x3 one
+    takes a one-row halo from the nearest ranks with rows in place of its
+    padding in height, and a rank with no rows gives none."""
+    if isinstance(conv, QuantConv):  # casts to the torso dtype itself
+        return conv(x, shard=None if shard is None else shard.site(level))
     x = x.to(conv.weight.dtype)
-    if mg is None or conv.kernel_size[0] == 1:
+    if shard is None:
         return conv(x)
-    x = coll.halo_rows(x, mg).contiguous(memory_format=torch.channels_last)
-    return F.conv2d(x, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]))
+    pad = conv.padding
+    if conv.kernel_size[0] > 1:
+        x = coll.halo_rows(x, shard.mg, 2, shard.rows(level)).contiguous(
+            memory_format=torch.channels_last)
+        pad = (0, pad[1])
+    if x.shape[2] == 0:
+        wo = (x.shape[3] + 2 * pad[1] - conv.kernel_size[1]) // conv.stride[1] + 1
+        return _no_rows(x, (x.shape[0], conv.out_channels, 0, wo))
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, pad)
 
 
 def _torso_conv(cin: int, cout: int, kernel: int, quant: Optional[str] = None,
@@ -178,13 +189,28 @@ def _torso_conv(cin: int, cout: int, kernel: int, quant: Optional[str] = None,
     return nn.Conv2d(cin, cout, kernel, padding=kernel // 2)
 
 
+def _no_rows(x, shape):
+    """The output of ``shape`` (no rows) of an op on a rank with no rows,
+    kept in ``x``'s graph, so that the rank's backward still reaches every
+    collective before it."""
+    return x.new_zeros(shape) + x.sum()
+
+
 def _upsample(x):
+    if x.shape[2] == 0:
+        return _no_rows(x, x.shape[:3] + (2 * x.shape[3],))
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+def _pool(x):
+    if x.shape[2] == 0:
+        return _no_rows(x, x.shape[:3] + (x.shape[3] // 2,))
+    return F.avg_pool2d(x, 2)
+
+
 class Upsample(nn.Module):
-    """Nearest x2 upsample + optional 3x3 conv."""
-    mg = None
+    """Nearest x2 upsample + optional 3x3 conv. ``level``: its output's."""
+    shard, level = None, 0
 
     def __init__(self, channels: int, use_conv: bool):
         super().__init__()
@@ -194,12 +220,13 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         x = _upsample(x)
-        return _conv(x, self.conv, self.mg) if self.use_conv else x
+        return _conv(x, self.conv, self.shard, self.level) if self.use_conv else x
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv with symmetric padding 1, or a 2x2 average pool."""
-    mg = None
+    """Stride-2 3x3 conv with symmetric padding 1, or a 2x2 average pool.
+    ``level``: its input's."""
+    shard, level = None, 0
 
     def __init__(self, channels: int, use_conv: bool):
         super().__init__()
@@ -208,7 +235,7 @@ class Downsample(nn.Module):
         self.use_conv = use_conv
 
     def forward(self, x):
-        return _conv(x, self.op, self.mg) if self.use_conv else F.avg_pool2d(x, 2)
+        return _conv(x, self.op, self.shard, self.level) if self.use_conv else _pool(x)
 
 
 class ResBlock(nn.Module):
@@ -220,8 +247,8 @@ class ResBlock(nn.Module):
     ``fused`` (int8 dynamic, no resampling, both widths multiples of 32)
     takes the fused route: each norm and conv pair is one
     ``QuantConv(x, gn=(gamma_nc, beta_nc))`` call, the norm's modules only
-    holding its parameters."""
-    mg = None
+    holding its parameters. ``level``: its convs' (after any resampling)."""
+    shard, level = None, 0
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  use_scale_shift_norm: bool, up: bool = False, down: bool = False,
@@ -260,9 +287,10 @@ class ResBlock(nn.Module):
         FiLM scale and shift folded into the second norm's per-sample
         affine in f32."""
         n = x.shape[0]
+        site = None if self.shard is None else self.shard.site(self.level)
         norm_in, norm_out = self.in_layers[0], self.out_layers[0]
         h = self.in_layers[2](x, gn=(norm_in.weight[None].expand(n, -1),
-                                     norm_in.bias[None].expand(n, -1)))
+                                     norm_in.bias[None].expand(n, -1)), shard=site)
         emb_out = self._emb_out(emb, h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out.reshape(n, -1).float(), 2, dim=1)
@@ -272,8 +300,9 @@ class ResBlock(nn.Module):
             h = h + emb_out
             gamma = norm_out.weight[None].expand(n, -1)
             beta = norm_out.bias[None].expand(n, -1)
-        h = self.out_layers[3](h, gn=(gamma, beta))
-        skip = x if self.skip_connection is None else _conv(x, self.skip_connection)
+        h = self.out_layers[3](h, gn=(gamma, beta), shard=site)
+        skip = x if self.skip_connection is None else \
+            _conv(x, self.skip_connection, self.shard, self.level)
         return skip + h
 
     def _forward(self, x, emb):
@@ -283,8 +312,8 @@ class ResBlock(nn.Module):
         if self.up:
             h, x = _upsample(h), _upsample(x)
         elif self.down:
-            h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
-        h = _conv(h, self.in_layers[2], self.mg)
+            h, x = _pool(h), _pool(x)
+        h = _conv(h, self.in_layers[2], self.shard, self.level)
         emb_out = self._emb_out(emb, h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out, 2, dim=1)
@@ -292,8 +321,9 @@ class ResBlock(nn.Module):
             h = F.silu(h)
         else:
             h = self.out_layers[0](h + emb_out)
-        h = _conv(h, self.out_layers[3], self.mg)
-        skip = x if self.skip_connection is None else _conv(x, self.skip_connection)
+        h = _conv(h, self.out_layers[3], self.shard, self.level)
+        skip = x if self.skip_connection is None else \
+            _conv(x, self.skip_connection, self.shard, self.level)
         return skip + h
 
     def forward(self, x, emb):
@@ -307,7 +337,7 @@ class AttentionBlock(nn.Module):
     reference's 1x1 conv1d weights (O, I, 1); on the int8 torso they are
     ``QuantDense`` layers. On a height shard each rank's queries attend to
     the keys and values of every rank (gathered over the model group)."""
-    mg = None
+    shard, level = None, 0
 
     def __init__(self, channels: int, num_heads: int, use_new_attention_order: bool,
                  quant: Optional[str] = None, dtype: torch.dtype = torch.bfloat16):
@@ -325,7 +355,7 @@ class AttentionBlock(nn.Module):
 
     def _dense(self, lin, y):
         if isinstance(lin, QuantDense):
-            return lin(y)
+            return lin(y, mg=None if self.shard is None else self.shard.mg)
         return F.linear(y.to(lin.weight.dtype), lin.weight[..., 0], lin.bias)
 
     def forward(self, x):
@@ -339,8 +369,10 @@ class AttentionBlock(nn.Module):
             q, k, v = (a.reshape(n, t, heads, ch) for a in torch.chunk(qkv, 3, dim=-1))
         else:
             q, k, v = torch.chunk(qkv.reshape(n, t, heads, 3 * ch), 3, dim=-1)
-        if self.mg is not None:
-            k, v = coll.gather_partial(k, 1, self.mg), coll.gather_partial(v, 1, self.mg)
+        if self.shard is not None:
+            sizes = [r * ww for r in self.shard.rows(self.level)]
+            k = coll.gather_partial(k, 1, self.shard.mg, sizes)
+            v = coll.gather_partial(v, 1, self.shard.mg, sizes)
         scale = 1.0 / math.sqrt(math.sqrt(ch))
         qf = (q * scale).float().permute(0, 2, 1, 3)                    # (n, h, t, c)
         kf = (k * scale).float().permute(0, 2, 3, 1)                    # (n, h, c, s)
@@ -369,9 +401,6 @@ class UNetModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.mg = model_group if model_group is not None and model_group.sharded else None
-        if self.mg is not None and cfg.quant is not None:
-            raise ValueError(f"quant={cfg.quant!r} with a model axis: the int8 torso on a "
-                             f"height shard (K2 and K3 across ranks) is {ITEM_15B}")
         mc = cfg.model_channels
         ted = mc * 4
         heads_up = cfg.num_heads_upsample if cfg.num_heads_upsample != -1 else cfg.num_heads
@@ -379,14 +408,18 @@ class UNetModel(nn.Module):
         def n_heads(ch, heads):
             return heads if cfg.num_head_channels == -1 else ch // cfg.num_head_channels
 
-        def res(cin, cout, **kw):
-            return ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, remat=cfg.remat,
-                            quant=cfg.quant, fused_gn_quant=cfg.fused_gn_quant,
-                            quant_1x1=cfg.quant_1x1, dtype=cfg.dtype, **kw)
+        def at(module, level):
+            module.level = level
+            return module
 
-        def attn(ch, heads):
-            return AttentionBlock(ch, heads, cfg.use_new_attention_order, quant=cfg.quant,
-                                  dtype=cfg.dtype)
+        def res(cin, cout, level, **kw):
+            return at(ResBlock(cin, ted, cout, cfg.use_scale_shift_norm, remat=cfg.remat,
+                               quant=cfg.quant, fused_gn_quant=cfg.fused_gn_quant,
+                               quant_1x1=cfg.quant_1x1, dtype=cfg.dtype, **kw), level)
+
+        def attn(ch, heads, level):
+            return at(AttentionBlock(ch, heads, cfg.use_new_attention_order, quant=cfg.quant,
+                                     dtype=cfg.dtype), level)
 
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
         if cfg.num_classes is not None:
@@ -398,44 +431,48 @@ class UNetModel(nn.Module):
         ds = 1
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
-                layers = [res(ch, int(mult * mc))]
+                layers = [res(ch, int(mult * mc), level)]
                 ch = int(mult * mc)
                 if ds in cfg.attention_resolutions:
-                    layers.append(attn(ch, n_heads(ch, cfg.num_heads)))
+                    layers.append(attn(ch, n_heads(ch, cfg.num_heads), level))
                 self.input_blocks.append(_Block(layers))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
                 self.input_blocks.append(_Block(
-                    [res(ch, ch, down=True)] if cfg.resblock_updown
-                    else [Downsample(ch, cfg.conv_resample)]))
+                    [res(ch, ch, level + 1, down=True)] if cfg.resblock_updown
+                    else [at(Downsample(ch, cfg.conv_resample), level)]))
                 chans.append(ch)
                 ds *= 2
 
+        deepest = len(cfg.channel_mult) - 1
         self.middle_block = _Block([
-            res(ch, ch),
-            attn(ch, n_heads(ch, cfg.num_heads)),
-            res(ch, ch)])
+            res(ch, ch, deepest),
+            attn(ch, n_heads(ch, cfg.num_heads), deepest),
+            res(ch, ch, deepest)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
                 ich = chans.pop()
-                layers = [res(ch + ich, int(mult * mc))]
+                layers = [res(ch + ich, int(mult * mc), level)]
                 ch = int(mult * mc)
                 if ds in cfg.attention_resolutions:
-                    layers.append(attn(ch, n_heads(ch, heads_up)))
+                    layers.append(attn(ch, n_heads(ch, heads_up), level))
                 if level and i == cfg.num_res_blocks:
-                    layers.append(res(ch, ch, up=True) if cfg.resblock_updown
-                                  else Upsample(ch, cfg.conv_resample))
+                    layers.append(res(ch, ch, level - 1, up=True) if cfg.resblock_updown
+                                  else at(Upsample(ch, cfg.conv_resample), level - 1))
                     ds //= 2
                 self.output_blocks.append(_Block(layers))
 
         self.out = nn.ModuleList([GroupNorm32(ch, apply_silu=True), nn.Identity(),
                                   nn.Conv2d(ch, cfg.out_channels, 3, padding=1)])
+        self._shard = None if self.mg is None else _Shard(self.mg)
         if self.mg is not None:
             for m in self.modules():
-                if isinstance(m, (GroupNorm32, ResBlock, AttentionBlock, Upsample, Downsample)):
+                if isinstance(m, GroupNorm32):
                     m.mg = self.mg
+                elif isinstance(m, (ResBlock, AttentionBlock, Upsample, Downsample)):
+                    m.shard = self._shard
         self.cast_torso()
 
     def cast_torso(self):
@@ -466,22 +503,22 @@ class UNetModel(nn.Module):
             if y is None:
                 raise ValueError("class-conditional model needs labels")
             emb = emb + self.label_emb(y)
-        mg = self.mg
+        mg, shard = self.mg, self._shard
         if mg is not None:
-            check_shard_heights(cfg, x.shape[2], mg.model_size)
-            x = coll.scatter(x, 2, mg)
+            shard.plan = plan_shards(x.shape[2], len(cfg.channel_mult), mg.model_size)
+            x = coll.scatter(x, 2, mg, shard.rows(0))
         h = x.to(cfg.dtype).contiguous(memory_format=torch.channels_last)
         hs = []
         for i, block in enumerate(self.input_blocks):
-            h = _conv(h, block[0], mg) if i == 0 else block(h, emb)
+            h = _conv(h, block[0], shard) if i == 0 else block(h, emb)
             hs.append(h)
         h = self.middle_block(h, emb)
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb)
         h = self.out[0](h.float())
-        h = _conv(h, self.out[2], mg)
+        h = _conv(h, self.out[2], shard)
         if mg is not None:
-            h = coll.gather_replicated(h, 2, mg)
+            h = coll.gather_replicated(h, 2, mg, shard.rows(0))
         return h.contiguous()
 
 

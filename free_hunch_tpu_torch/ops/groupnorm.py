@@ -26,15 +26,17 @@ kernel; the backward recomputes the plain version under autograd and pulls
 the cotangent back through it.
 
 On a height shard (``UNetModel(model_group=)``: each rank of a model
-group holds some rows of every sample) ``groupnorm_silu_sharded`` runs the
-two halves of the two-pass path with a merge across ranks between them:
-the stats entry (``fh_groupnorm_stats``: this shard's (mean, M2) per
-(sample, group)), one gather of those partials over the group, and the
-apply entry (``fh_groupnorm_apply``), each of whose blocks first merges
-the gathered partials in rank order in f32 (Chan's merge, as the finalize
-merges chunks). Its plain twin, ``groupnorm_silu_sharded_plain``, sums x and
-then the centred squares over the group (two all_reduces); it runs on the
-CPU and in the backward.
+group holds some rows of every sample, maybe none) ``groupnorm_silu_sharded``
+runs the two halves of the two-pass path with a merge across ranks between
+them: the stats entry (``fh_groupnorm_stats``: this shard's (mean, M2,
+count) per (sample, group); nothing is launched for a shard of no rows,
+whose partial is (0, 0, 0)), one gather of those partials over the group,
+and the apply entry (``fh_groupnorm_apply``), each of whose blocks first
+merges the gathered partials in rank order in f32, each weighted by its
+own count (Chan's merge, as the finalize merges chunks), so the shards may
+be of any sizes. Its plain twin, ``groupnorm_silu_sharded_plain``, sums x
+and the count and then the centred squares over the group (two
+all_reduces); it runs on the CPU and in the backward.
 """
 from __future__ import annotations
 
@@ -290,10 +292,29 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 # -- a height shard: statistics merged across the ranks of a model group ------
 
-def _shard_counts(x: torch.Tensor, groups: int) -> int:
-    """Elements of one (sample, group) in this shard."""
+def sharded_normalize_plain(x: torch.Tensor, groups: int, eps: float, mg) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) in f32 for a channels-last (N, ..., C)
+    shard whose samples continue on the other ranks of the model group
+    ``mg``, with the whole samples' group statistics: two passes, centred,
+    each a differentiable all_reduce of per-(sample, group) sums (the first
+    carries each shard's element count, so shards may differ in size or be
+    empty). The plain twin of K1's and K2's shard entries, and what their
+    backward differentiates."""
+    from free_hunch_tpu_torch.parallel import collectives as coll
     n, c = x.shape[0], x.shape[-1]
-    return (x.numel() // max(n * c, 1)) * (c // groups)
+    cg = c // groups
+    red = tuple(range(1, x.dim() - 1))
+    bshape = (n,) + (1,) * (x.dim() - 2) + (c,)
+    xf = x.float()
+    count = float(x[:1].numel() // c * cg)
+    gsum = xf.sum(dim=red).reshape(n, groups, cg).sum(-1)
+    merged = coll.all_reduce(torch.cat([gsum, gsum.new_full((n, 1), count)], dim=1), mg)
+    total = merged[:, groups:]
+    gmean_c = (merged[:, :groups] / total).repeat_interleave(cg, dim=-1)
+    centered = xf - gmean_c.reshape(bshape)
+    gsq = coll.all_reduce(centered.square().sum(dim=red).reshape(n, groups, cg).sum(-1), mg)
+    inv_c = torch.rsqrt(gsq / total + eps).repeat_interleave(cg, dim=-1)
+    return centered * inv_c.reshape(bshape)
 
 
 def groupnorm_silu_sharded_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -301,22 +322,10 @@ def groupnorm_silu_sharded_plain(x: torch.Tensor, gamma: torch.Tensor, beta: tor
                                  mg) -> torch.Tensor:
     """Plain PyTorch GroupNorm(+SiLU) of a channels-last (N, ..., C) shard
     whose samples continue on the other ranks of the model group ``mg``
-    (every shard the same size): two passes, centred, each a
-    differentiable all_reduce of per-(sample, group) sums, so autograd
-    through it is the gradient of the whole norm."""
-    from free_hunch_tpu_torch.parallel import collectives as coll
-    n, c = x.shape[0], x.shape[-1]
-    cg = c // groups
-    red = tuple(range(1, x.dim() - 1))
-    bshape = (n,) + (1,) * (x.dim() - 2) + (c,)
-    count = float(_shard_counts(x, groups) * mg.model_size)
-    xf = x.float()
-    gsum = coll.all_reduce(xf.sum(dim=red).reshape(n, groups, cg).sum(-1), mg)
-    gmean_c = (gsum / count).repeat_interleave(cg, dim=-1)
-    centered = xf - gmean_c.reshape(bshape)
-    gsq = coll.all_reduce(centered.square().sum(dim=red).reshape(n, groups, cg).sum(-1), mg)
-    inv_c = torch.rsqrt(gsq / count + eps).repeat_interleave(cg, dim=-1)
-    y = centered * inv_c.reshape(bshape)
+    (shards of any sizes): ``sharded_normalize_plain``, then the (C,)
+    affine and the SiLU; autograd through it is the gradient of the whole
+    norm."""
+    y = sharded_normalize_plain(x, groups, eps, mg)
     y = y * gamma.float() + beta.float()
     if apply_silu:
         y = y * torch.sigmoid(y)
@@ -341,11 +350,14 @@ def _k1_sharded_entries():
 
 
 def shard_stats_cuda(x: torch.Tensor, groups: int = 32) -> torch.Tensor:
-    """The stats entry on a contiguous channels-last CUDA shard: (N, G, 2)
-    f32, this shard's (mean, M2) per (sample, group)."""
+    """The stats entry on a contiguous channels-last CUDA shard: (N, G, 3)
+    f32, this shard's (mean, M2, count) per (sample, group). A shard of no
+    rows launches nothing and gives (0, 0, 0)."""
     n, s, c = _check_k1_input(x, groups)
+    out = torch.zeros((n, groups, 3), device=x.device, dtype=torch.float32)
+    if s == 0:
+        return out
     plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path="two-pass")
-    out = torch.empty((n, groups, 2), device=x.device, dtype=torch.float32)
     scratch = torch.empty(2 * n * plan.chunks * groups, device=x.device, dtype=torch.float32)
     err = _k1_sharded_entries()["stats"](
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, s, c, groups, plan.rows,
@@ -361,16 +373,19 @@ def shard_apply_cuda(x: torch.Tensor, parts: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, groups: int = 32, eps: float = 1e-5,
                      apply_silu: bool = True) -> torch.Tensor:
     """The apply entry: y from x and the model group's gathered statistics,
-    ``parts`` (M, N, G, 2) f32, each rank's (mean, M2) of a shard of x's
-    size, which the kernel merges in rank order (Chan's merge, as the
-    finalize merges chunks) before it applies them."""
+    ``parts`` (M, N, G, 3) f32, each rank's (mean, M2, count), which the
+    kernel merges in rank order, weighted by the counts (Chan's merge, as
+    the finalize merges chunks) before it applies them. A shard of no rows
+    launches nothing."""
     n, s, c = _check_k1_input(x, groups, gamma, beta)
-    if parts.dim() != 4 or parts.shape[1:] != (n, groups, 2) or \
+    if parts.dim() != 4 or parts.shape[1:] != (n, groups, 3) or \
             parts.dtype != torch.float32 or not parts.is_contiguous() or \
             parts.device != x.device:
-        raise ValueError("parts must be contiguous f32 (M, N, G, 2) on x's device")
-    plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path="two-pass")
+        raise ValueError("parts must be contiguous f32 (M, N, G, 3) on x's device")
     y = torch.empty_like(x)
+    if s == 0:
+        return y
+    plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path="two-pass")
     err = _k1_sharded_entries()["apply"](
         x.data_ptr(), y.data_ptr(), parts.data_ptr(), parts.shape[0], gamma.data_ptr(),
         beta.data_ptr(), n, s, c, groups, plan.rows, plan.chunks, plan.ty, eps,
@@ -386,7 +401,7 @@ def groupnorm_silu_sharded_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torc
                                 groups: int, eps: float, apply_silu: bool,
                                 mg) -> torch.Tensor:
     """The kernel path of a height shard: the stats entry, one gather of
-    the (N, G, 2) partials over the model group ``mg``, the apply entry
+    the (N, G, 3) partials over the model group ``mg``, the apply entry
     (which merges them). Raises on anything the kernels do not take."""
     from free_hunch_tpu_torch.parallel import collectives as coll
     part = shard_stats_cuda(x, groups)

@@ -25,6 +25,20 @@ Counterpart of ``free_hunch_tpu/ops/quant.py``:
   plain f32 GroupNorm+affine+SiLU (``_gn_silu_ref_f32`` :348-363, kept in
   ``ops/gn_quant.py`` beside the quantiser it is the first half of).
 
+On a height shard (``QuantConv(x, shard=(mg, rows))``, ``QuantDense(y,
+mg=mg)``: each rank of the model group ``mg`` holds some rows of every
+sample) the JAX semantics are the whole sample's: a dynamic per-sample
+abs-max is max-merged over the group (``parallel/collectives.py::all_max``),
+so every rank quantises with the whole sample's scale, bitwise the
+unsharded one (a max is order-free); K2's shard entries merge its
+statistics and extremes (``ops/gn_quant.py``). A 3x3 site then exchanges
+one-row halos of the int8 CODES (a byte an element) and runs K3 with
+height padding 0 and width padding 1 on the halo'd rows; its pullback
+quantises the cotangent with the merged scale and exchanges the
+cotangent's code halos the same way, which is the adjoint of the forward's
+exchange (each halo row's contribution reaches the rank that sent it), with
+int32 sums as exact as the unsharded ones. A static scale needs no merge.
+
 Public functions keep the JAX package's layouts: NHWC activations, HWIO
 conv weights, (I, O) dense weights.
 """
@@ -38,8 +52,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from free_hunch_tpu_torch.ops.gn_quant import _gn_silu_ref_f32, gn_silu_quant
+from free_hunch_tpu_torch.ops.gn_quant import (_gn_silu_ref_f32, gn_silu_quant,
+                                               gn_silu_quant_sharded,
+                                               gn_silu_sharded_ref_f32)
 from free_hunch_tpu_torch.ops.groupnorm import device_sms
+from free_hunch_tpu_torch.parallel import collectives as coll
 
 # Calls that launched K3. Plain-version calls on CPU tensors do not count.
 launches = 0
@@ -58,11 +75,23 @@ def _quantize_weight(w: torch.Tensor, reduce_dims: Tuple[int, ...]):
     return wq, scale.float()
 
 
-def _quantize_act(x: torch.Tensor):
+def _abs_max(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample max |x| over all non-batch dims, f32 (n, 1, ..., 1); 0
+    for a shard of no elements (a neutral for the max-merge)."""
+    if x.numel() == 0:
+        return torch.zeros((x.shape[0],) + (1,) * (x.dim() - 1), dtype=torch.float32,
+                           device=x.device)
+    return x.abs().float().amax(dim=tuple(range(1, x.dim())), keepdim=True)
+
+
+def _quantize_act(x: torch.Tensor, mg=None):
     """Symmetric per-sample dynamic int8 over all non-batch dims; the
     elementwise arithmetic stays in x's dtype, the scale is f32 of shape
-    (n, 1, ..., 1)."""
-    amax = x.abs().float().amax(dim=tuple(range(1, x.dim())), keepdim=True)
+    (n, 1, ..., 1). On a shard (``mg``, its model group) the abs-max is the
+    whole sample's, max-merged over the group."""
+    amax = _abs_max(x)
+    if mg is not None:
+        amax = coll.all_max(amax, mg)
     scale = torch.clamp(amax, min=1e-12) * (1.0 / 127.0)
     inv = (1.0 / scale).to(x.dtype)
     xq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
@@ -84,17 +113,23 @@ def _epilogue(acc: torch.Tensor, ascale: torch.Tensor, wscale: torch.Tensor,
     return (acc.float() * s).to(out_dtype)
 
 
+def _pads(pad) -> Tuple[int, int]:
+    """(height, width) padding from one int or a pair."""
+    return (pad, pad) if isinstance(pad, int) else (int(pad[0]), int(pad[1]))
+
+
 def int8_conv_plain(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
-                    wscale: Optional[torch.Tensor], pad: int,
+                    wscale: Optional[torch.Tensor], pad,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K3's plain version. xq (n, h, w, i) int8, wk (o, kh, kw, i) int8,
-    ascale (n,) f32, wscale (o,) f32. The int32 sums are exact: a float64
-    convolution of the int8 values (every |sum| < 2^53; cuDNN is off so
-    that no Winograd or FFT algorithm rounds). ``out_dtype`` int32 returns
-    the sums; f32 or bf16 the dequantised output."""
+    ascale (n,) f32, wscale (o,) f32; ``pad`` one int or (height, width).
+    The int32 sums are exact: a float64 convolution of the int8 values
+    (every |sum| < 2^53; cuDNN is off so that no Winograd or FFT algorithm
+    rounds). ``out_dtype`` int32 returns the sums; f32 or bf16 the
+    dequantised output."""
     with torch.backends.cudnn.flags(enabled=False):
         acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wk.permute(0, 3, 1, 2).double(),
-                       padding=pad)
+                       padding=_pads(pad))
     acc = acc.permute(0, 2, 3, 1).to(torch.int32).contiguous()
     if out_dtype == torch.int32:
         return acc
@@ -145,7 +180,7 @@ class Int8ConvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=4096)
-def int8_conv_plan(n: int, h: int, w: int, i: int, o: int, kh: int, kw: int, pad: int,
+def int8_conv_plan(n: int, h: int, w: int, i: int, o: int, kh: int, kw: int, pad,
                    sms: int, cut: Optional[Tuple[int, int]] = None) -> Int8ConvPlan:
     """K3's tile width and K splits for one shape on a device with ``sms``
     SMs: of 256-wide tiles (where O % 256 == 0) and 128-wide ones, each with
@@ -155,8 +190,10 @@ def int8_conv_plan(n: int, h: int, w: int, i: int, o: int, kh: int, kw: int, pad
     and 16 px layers, whose tiles fill a fraction of the SMs, split K to
     fill about one wave: splitting further would start a second wave of
     short units. ``cut`` = (bn, splits) forces a cut instead, to compare
-    cuts; it raises if the kernel has no such cut of this shape."""
-    m = n * (h + 2 * pad - kh + 1) * (w + 2 * pad - kw + 1)
+    cuts; it raises if the kernel has no such cut of this shape. ``pad``:
+    one int or (height, width) (a halo'd shard's (0, 1))."""
+    ph, pw = _pads(pad)
+    m = n * (h + 2 * ph - kh + 1) * (w + 2 * pw - kw + 1)
     kb = -(-kh * kw * i // _BK)
     mt = -(-m // _BM)
     cuts = [(bn, s) for s in range(1, kb + 1) for bn in ((256, 128) if o % 256 == 0 else (128,))]
@@ -230,7 +267,7 @@ def _k3_failed(err: int):
                         f"{_K3_ERRORS.get(err, f'CUDA error {err}')}")
 
 
-def _k3_launch(x_shape, wk: torch.Tensor, pad: int, device: int,
+def _k3_launch(x_shape, wk: torch.Tensor, pad, device: int,
                cut: Optional[Tuple[int, int]] = None) -> _K3Launch:
     """Check one shape, plan its cut (or take ``cut``) for the device's SM
     count, and encode the weights' tensor map at the cut's tile width."""
@@ -238,7 +275,8 @@ def _k3_launch(x_shape, wk: torch.Tensor, pad: int, device: int,
         raise ValueError("int8_conv kernel needs contiguous (n, h, w, i) and (o, kh, kw, i)")
     n, h, w, i = x_shape
     o, kh, kw, wi = wk.shape
-    ho, wo = h + 2 * pad - kh + 1, w + 2 * pad - kw + 1
+    ph, pw = _pads(pad)
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
     if wi != i or i % 16 or o % 16:
         raise ValueError(f"int8_conv kernel: I={i} (weights {wi}) and O={o} must agree "
                          f"and be multiples of 16")
@@ -248,13 +286,13 @@ def _k3_launch(x_shape, wk: torch.Tensor, pad: int, device: int,
                          f"pad {pad} out of range")
     if wk.data_ptr() % 16:
         raise ValueError("int8_conv kernel needs 16-byte aligned operands")
-    plan = int8_conv_plan(n, h, w, i, o, kh, kw, pad, device_sms(device), cut)
+    plan = int8_conv_plan(n, h, w, i, o, kh, kw, (ph, pw), device_sms(device), cut)
     wmap = ctypes.create_string_buffer(128)      # a CUtensorMap
     err = _k3_lib().fh_int8_conv_weight_map(wk.data_ptr(), o, kh * kw * i, plan.bn,
                                              ctypes.addressof(wmap))
     if err != 0:
         raise _k3_failed(err)
-    shape = (ctypes.c_int * 11)(n, h, w, i, o, kh, kw, pad, plan.bn, plan.splits, plan.grid)
+    shape = (ctypes.c_int * 12)(n, h, w, i, o, kh, kw, ph, pw, plan.bn, plan.splits, plan.grid)
     return _K3Launch(plan, (n, ho, wo, o), shape, wmap, ctypes.addressof(shape),
                      ctypes.addressof(wmap))
 
@@ -301,7 +339,7 @@ def _k3_enqueue(xq, rec: _K3Launch, ascale, wscale, mode: int, out_dtype, device
 
 
 def int8_conv_cuda(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
-                   wscale: Optional[torch.Tensor], pad: int,
+                   wscale: Optional[torch.Tensor], pad,
                    out_dtype: torch.dtype = torch.float32, stride: int = 1) -> torch.Tensor:
     """Launch K3 as ``int8_conv_plan`` cuts the call. Same arguments as
     ``int8_conv_plain``; raises on anything the kernel does not take (I or
@@ -310,7 +348,7 @@ def int8_conv_cuda(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Te
     at a weight's first call at an input shape, and reused after."""
     mode = _k3_check(xq, wk, ascale, wscale, out_dtype, stride)
     device = xq.get_device()
-    key = (xq.shape, wk.data_ptr(), wk.shape, pad, device)
+    key = (xq.shape, wk.data_ptr(), wk.shape, _pads(pad), device)
     rec = _LAUNCHES.get(key)
     if rec is None:
         if len(_LAUNCHES) >= _LAUNCHES_MAX:
@@ -320,7 +358,7 @@ def int8_conv_cuda(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Te
 
 
 def _int8_conv_launch(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch.Tensor],
-                      wscale: Optional[torch.Tensor], pad: int, out_dtype: torch.dtype,
+                      wscale: Optional[torch.Tensor], pad, out_dtype: torch.dtype,
                       cut: Tuple[int, int]) -> torch.Tensor:
     """``int8_conv_cuda`` with the cut forced: ``cut`` = (tile width, K
     splits), to compare cuts; raises if the kernel has no such cut of this
@@ -333,7 +371,12 @@ def _int8_conv_launch(xq: torch.Tensor, wk: torch.Tensor, ascale: Optional[torch
 
 def int8_conv_nhwc(xq, wk, ascale, wscale, pad, out_dtype):
     """The int8 product: K3 on a CUDA tensor (or this raises), the plain
-    version on a CPU tensor."""
+    version on a CPU tensor. A shard of no rows gives no rows, and
+    launches nothing."""
+    if xq.shape[1] == 0:
+        wo = xq.shape[2] + 2 * _pads(pad)[1] - wk.shape[2] + 1
+        return torch.zeros((xq.shape[0], 0, wo, wk.shape[0]), dtype=out_dtype,
+                           device=xq.device)
     if xq.is_cuda:
         return int8_conv_cuda(xq.contiguous(), wk, ascale, wscale, pad, out_dtype)
     if xq.device.type == "cpu":
@@ -366,69 +409,101 @@ def prepare_conv_weight(w: torch.Tensor) -> Int8Weight:
 
 # -- autograd -----------------------------------------------------------------
 
+def _halo_pads(pad: int, halo) -> Tuple[int, int]:
+    """K3's padding of a site: (pad, pad), or (0, pad) when its rows carry
+    a one-row halo from each neighbour."""
+    return (0, pad) if halo is not None else (pad, pad)
+
+
 class _Int8Conv(torch.autograd.Function):
     """x (n, h, w, i) -> x.dtype (n, h, w, o). ``ascale`` None: dynamic
-    per-sample activation scales; else a calibrated scalar (static)."""
+    per-sample activation scales; else a calibrated scalar (static). On a
+    height shard ``mg`` is the model group (dynamic scales merged over it)
+    and ``halo`` the ranks' rows at a 3x3 site (None for a 1x1 site or a
+    dense layer), whose codes take one-row halos."""
 
     @staticmethod
-    def forward(ctx, x, w, ascale, qw: Int8Weight, pad: int):
+    def forward(ctx, x, w, ascale, qw: Int8Weight, pad: int, mg=None, halo=None):
         if ascale is None:
-            xq, asc = _quantize_act(x)
+            xq, asc = _quantize_act(x) if mg is None else _quantize_act(x, mg)
             asc = asc.reshape(-1)
         else:
             xq = _quantize_act_static(x, ascale)
             asc = ascale.float().reshape(1).expand(x.shape[0]).contiguous()
-        ctx.qw, ctx.pad, ctx.x_dtype = qw, pad, x.dtype
+        if halo is not None:
+            xq = coll.halo_rows(xq, mg, 1, halo)
+        ctx.qw, ctx.pad, ctx.x_dtype, ctx.mg, ctx.halo = qw, pad, x.dtype, mg, halo
         ctx.w_shape, ctx.w_like = w.shape, (w.dtype, w.device)
-        return int8_conv_nhwc(xq, qw.wk, asc, qw.wscale, pad, x.dtype)
+        return int8_conv_nhwc(xq, qw.wk, asc, qw.wscale, _halo_pads(pad, halo), x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         qw = ctx.qw
-        dx = _int8_pullback(g, qw, ctx.pad, ctx.x_dtype)
+        dx = _int8_pullback(g, qw, ctx.pad, ctx.x_dtype) if ctx.mg is None else \
+            _int8_pullback(g, qw, ctx.pad, ctx.x_dtype, ctx.mg, ctx.halo)
         need_w, need_s = ctx.needs_input_grad[1], ctx.needs_input_grad[2]
         dw = torch.zeros(ctx.w_shape, dtype=ctx.w_like[0], device=ctx.w_like[1]) \
             if need_w else None
         ds = torch.zeros((), dtype=torch.float32, device=g.device) if need_s else None
-        return dx, dw, ds, None, None
+        return dx, dw, ds, None, None, None, None
 
 
-def _int8_pullback(g: torch.Tensor, qw: Int8Weight, pad: int,
-                   out_dtype: torch.dtype) -> torch.Tensor:
+def _int8_pullback(g: torch.Tensor, qw: Int8Weight, pad: int, out_dtype: torch.dtype,
+                   mg=None, halo=None) -> torch.Tensor:
     """dx = conv(quantise(g * wscale), flipped I/O-swapped wq) * gscale: the
     weight scale folded into the cotangent makes the int8 transposed
-    product exact bookkeeping."""
+    product exact bookkeeping. On a shard the cotangent's scale is merged
+    over ``mg``, and at a halo'd site its codes take one-row halos: the
+    transposed 3x3 product of a rank's rows reads the neighbours' edge rows
+    of the cotangent, as the forward read their activations."""
     g_scaled = g * qw.wscale.to(g.dtype)
-    gq, gscale = _quantize_act(g_scaled)
-    pad_t = qw.wk.shape[1] - 1 - pad
+    gq, gscale = _quantize_act(g_scaled) if mg is None else _quantize_act(g_scaled, mg)
+    if halo is not None:
+        gq = coll.halo_rows(gq, mg, 1, halo)
+    ph, pw = _halo_pads(pad, halo)
+    kh, kw = qw.wk.shape[1:3]
+    pad_t = (0 if halo is not None else kh - 1 - ph, kw - 1 - pw)
     return int8_conv_nhwc(gq, qw.wkT, gscale.reshape(-1), qw.ones_in, pad_t, out_dtype)
 
 
 class _GNQuantConv(torch.autograd.Function):
     """silu(groupnorm(x) * gamma_nc + beta_nc) -> int8 -> int8 conv, bias
     not included. Backward: straight through the quantisation, exact
-    through GroupNorm+affine+SiLU (recomputed from x)."""
+    through GroupNorm+affine+SiLU (recomputed from x). On a height shard
+    (``mg``, ``halo`` as ``_Int8Conv``'s) the norm's statistics and the
+    scale are the whole sample's (K2's shard entries), the codes take
+    halos, and the backward differentiates the sharded f32 reference,
+    whose all_reduces carry the gradient across the group."""
 
     @staticmethod
     def forward(ctx, x, gamma_nc, beta_nc, w, qw: Int8Weight, pad: int, groups: int,
-                eps: float):
-        xq, ascale = gn_silu_quant(x, gamma_nc, beta_nc, groups, eps)
+                eps: float, mg=None, halo=None):
+        if mg is None:
+            xq, ascale = gn_silu_quant(x, gamma_nc, beta_nc, groups, eps)
+        else:
+            xq, ascale = gn_silu_quant_sharded(x, gamma_nc, beta_nc, groups, eps, mg)
+        if halo is not None:
+            xq = coll.halo_rows(xq, mg, 1, halo)
         ctx.save_for_backward(x, gamma_nc, beta_nc)
-        ctx.qw, ctx.cfg = qw, (pad, groups, eps)
+        ctx.qw, ctx.cfg, ctx.mg, ctx.halo = qw, (pad, groups, eps), mg, halo
         ctx.w_shape, ctx.w_like = w.shape, (w.dtype, w.device)
-        return int8_conv_nhwc(xq, qw.wk, ascale.reshape(-1), qw.wscale, pad, x.dtype)
+        return int8_conv_nhwc(xq, qw.wk, ascale.reshape(-1), qw.wscale,
+                              _halo_pads(pad, halo), x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, gamma_nc, beta_nc = ctx.saved_tensors
         pad, groups, eps = ctx.cfg
+        mg = ctx.mg
         need = ctx.needs_input_grad[:3]
         with torch.profiler.record_function("gn_quant_conv_backward"):
-            dy = _int8_pullback(g, ctx.qw, pad, torch.float32)
+            dy = _int8_pullback(g, ctx.qw, pad, torch.float32) if mg is None else \
+                _int8_pullback(g, ctx.qw, pad, torch.float32, mg, ctx.halo)
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_(r)
                        for t, r in zip((x, gamma_nc, beta_nc), need)]
-                y = _gn_silu_ref_f32(*ins, groups, eps)
+                y = _gn_silu_ref_f32(*ins, groups, eps) if mg is None else \
+                    gn_silu_sharded_ref_f32(*ins, groups, eps, mg)
                 wanted = [t for t, r in zip(ins, need) if r]
                 got = iter(torch.autograd.grad(y, wanted, dy)) if wanted else iter(())
         grads = [next(got) if r else None for r in need]
@@ -436,7 +511,7 @@ class _GNQuantConv(torch.autograd.Function):
             grads[0] = grads[0].to(x.dtype)
         dw = torch.zeros(ctx.w_shape, dtype=ctx.w_like[0], device=ctx.w_like[1]) \
             if ctx.needs_input_grad[3] else None
-        return (*grads, dw, None, None, None, None)
+        return (*grads, dw, None, None, None, None, None, None)
 
 
 # -- the JAX package's functional surface -------------------------------------
@@ -452,10 +527,10 @@ def int8_conv_static(x, w, ascale, pad: int, qw: Optional[Int8Weight] = None):
     return _Int8Conv.apply(x, w, ascale, qw or prepare_conv_weight(w), pad)
 
 
-def _dense(x, w, ascale, qw):
+def _dense(x, w, ascale, qw, mg=None):
     lead = x.shape[:-1]
     x4 = x.reshape(x.shape[0], -1, 1, x.shape[-1])
-    out = _Int8Conv.apply(x4, w, ascale, qw or prepare_conv_weight(w[None, None]), 0)
+    out = _Int8Conv.apply(x4, w, ascale, qw or prepare_conv_weight(w[None, None]), 0, mg)
     return out.reshape(*lead, -1)
 
 
@@ -517,14 +592,17 @@ class _QuantSite:
             self._int8_key = key
         return self._int8
 
-    def _scale_arg(self, xc):
+    def _scale_arg(self, xc, mg=None):
         """None (dynamic scales) or the static scalar; records the abs-max
-        in calib mode."""
+        in calib mode (on a shard, the whole batch's, max-merged over the
+        model group ``mg``)."""
         if self.mode == "static":
             return self.act_scale
         if self.mode == "calib":
             with torch.no_grad():
-                a = xc.abs().float().amax()
+                a = _abs_max(xc).amax()
+                if mg is not None:
+                    a = coll.all_max(a, mg)
                 self.amax = a if self.amax is None else torch.maximum(self.amax, a)
         return None
 
@@ -537,7 +615,10 @@ class QuantConv(nn.Conv2d, _QuantSite):
     mode: 'dynamic' per-sample scales; 'static' the calibrated scalar in
     ``act_scale``; 'calib' dynamic compute plus the batch abs-max in
     ``amax``. ``forward(x, gn=(gamma_nc, beta_nc))`` is the fused route:
-    GroupNorm+affine+SiLU+quantise (K2) feeding the conv."""
+    GroupNorm+affine+SiLU+quantise (K2) feeding the conv.
+    ``forward(x, shard=(mg, rows))``: x is this rank's rows of a height
+    shard over the model group ``mg``, whose ranks hold ``rows`` rows
+    (module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  mode: str = "dynamic", dtype: torch.dtype = torch.bfloat16):
@@ -548,17 +629,20 @@ class QuantConv(nn.Conv2d, _QuantSite):
     def _master(self):
         return self.weight.permute(2, 3, 1, 0)      # HWIO view
 
-    def forward(self, x, gn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    def forward(self, x, gn: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                shard=None):
         xc = x.permute(0, 2, 3, 1).to(self.compute_dtype)
         pad = self.padding[0]
+        mg, halo = (None, None) if shard is None else \
+            (shard[0], tuple(shard[1]) if self.kernel_size[0] > 1 else None)
         if gn is not None:
             if self.mode != "dynamic":
                 raise ValueError("the fused GroupNorm route runs in dynamic mode only")
             out = _GNQuantConv.apply(xc, gn[0], gn[1], self._master(), self.int8_weight(),
-                                     pad, 32, 1e-5)
+                                     pad, 32, 1e-5, mg, halo)
         else:
-            out = _Int8Conv.apply(xc, self._master(), self._scale_arg(xc),
-                                  self.int8_weight(), pad)
+            out = _Int8Conv.apply(xc, self._master(), self._scale_arg(xc, mg),
+                                  self.int8_weight(), pad, mg, halo)
         out = out + self.bias.to(self.compute_dtype)
         return out.permute(0, 3, 1, 2)
 
@@ -566,7 +650,8 @@ class QuantConv(nn.Conv2d, _QuantSite):
 class QuantDense(nn.Conv1d, _QuantSite):
     """int8 dense layer with the reference 1x1 conv1d parameters (weight
     (O, I, 1), bias) kept in f32. Takes (n, t, I), returns (n, t, O) in the
-    torso dtype. Modes as in ``QuantConv``."""
+    torso dtype. Modes as in ``QuantConv``; ``forward(y, mg=mg)``: y is
+    this rank's positions of a height shard over the model group ``mg``."""
 
     def __init__(self, in_features: int, out_features: int, mode: str = "dynamic",
                  dtype: torch.dtype = torch.bfloat16):
@@ -576,9 +661,9 @@ class QuantDense(nn.Conv1d, _QuantSite):
     def _master(self):
         return self.weight[..., 0].t()[None, None]    # (1, 1, I, O) view
 
-    def forward(self, y):
+    def forward(self, y, mg=None):
         yc = y.to(self.compute_dtype)
         n, t, i = yc.shape
-        out = _Int8Conv.apply(yc.reshape(n, t, 1, i), self._master(), self._scale_arg(yc),
-                              self.int8_weight(), 0)
+        out = _Int8Conv.apply(yc.reshape(n, t, 1, i), self._master(), self._scale_arg(yc, mg),
+                              self.int8_weight(), 0, mg)
         return out.reshape(n, t, -1) + self.bias.to(self.compute_dtype)

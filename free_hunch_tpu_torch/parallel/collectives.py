@@ -13,6 +13,13 @@ same bits. That runs on gloo on the CPU, on gloo with CUDA tensors (which
 has no ``all_gather`` or ``send``/``recv`` for them) and on nccl.
 nccl's native gather and point-to-point calls are ROADMAP item 15b.
 
+Shards may be uneven (``parallel/mesh.py::plan_shards``, ``split_sizes``):
+the gathers, ``scatter`` and ``halo_rows`` take the ranks' sizes along the
+sharded dimension (``sizes``; default equal shards), a slot is as large as
+the largest shard, and a rank with no rows adds zeros: it sends nothing a
+neighbour reads and receives nothing. ``all_max`` is the max-merge (the
+dynamic int8 torso's per-sample abs-max), a gather of slots and a max.
+
 Two kinds of gradient, by what the output is:
 
 * a *partial* output, which each rank goes on to use for its own part of
@@ -32,12 +39,12 @@ waiting in different collectives.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
 
-from free_hunch_tpu_torch.parallel.mesh import ITEM_15B, ModelGroup
+from free_hunch_tpu_torch.parallel.mesh import ModelGroup, split_sizes
 
 #: collectives issued and bytes this rank contributed to them, since the
 #: last ``reset_counts`` (every call counts, forward and backward)
@@ -58,11 +65,42 @@ def _sum(t: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     return t
 
 
+def _sizes(x: torch.Tensor, dim: int, mg: ModelGroup,
+           sizes: Optional[Sequence[int]]) -> Tuple[int, ...]:
+    """The ranks' sizes on ``dim`` (equal to this rank's by default),
+    checked against this rank's."""
+    sizes = (x.shape[dim],) * mg.model_size if sizes is None else tuple(int(s) for s in sizes)
+    if len(sizes) != mg.model_size or sizes[mg.model_index] != x.shape[dim]:
+        raise ValueError(f"rank {mg.model_index}: {x.shape[dim]} on dim {dim}, but the "
+                         f"shard sizes are {sizes}")
+    return sizes
+
+
+def _pad_to(x: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``x`` with zeros appended on ``dim`` up to ``size`` (differentiable)."""
+    if x.shape[dim] == size:
+        return x
+    shape = list(x.shape)
+    shape[dim] = size - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
 def _slot(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     """(model_size, *x.shape) zeros with ``x`` in this rank's slot."""
     parts = [torch.zeros_like(x)] * mg.model_size
     parts[mg.model_index] = x
     return torch.stack(parts)
+
+
+def _cat_slots(buf: torch.Tensor, dim: int, sizes: Sequence[int]) -> torch.Tensor:
+    """The slots' first ``sizes[r]`` entries on ``dim``, in rank order."""
+    return torch.cat([b.narrow(dim, 0, n) for b, n in zip(buf.unbind(0), sizes)], dim=dim)
+
+
+def _gather(x: torch.Tensor, dim: int, mg: ModelGroup, sizes) -> torch.Tensor:
+    """The ranks' ``x`` on ``dim`` in rank order: one sum of slots as large
+    as the largest shard."""
+    return _cat_slots(_sum(_slot(_pad_to(x, dim, max(sizes)), mg), mg), dim, sizes)
 
 
 class _AllReduce(torch.autograd.Function):
@@ -84,14 +122,13 @@ class _GatherReplicated(torch.autograd.Function):
     replicated, so the backward takes this rank's slot of the cotangent."""
 
     @staticmethod
-    def forward(ctx, x, mg, dim):
-        ctx.mg, ctx.dim, ctx.n = mg, dim, x.shape[dim]
-        return _cat_slots(_sum(_slot(x, mg), mg), dim)
+    def forward(ctx, x, mg, dim, sizes):
+        ctx.dim, ctx.start, ctx.n = dim, sum(sizes[:mg.model_index]), x.shape[dim]
+        return _gather(x, dim, mg, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        i = ctx.mg.model_index
-        return g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.n).contiguous(), None, None, None
 
 
 class _Scatter(torch.autograd.Function):
@@ -100,18 +137,13 @@ class _Scatter(torch.autograd.Function):
     replicated input's cotangent)."""
 
     @staticmethod
-    def forward(ctx, x, mg, dim):
-        ctx.mg, ctx.dim = mg, dim
-        n = x.shape[dim] // mg.model_size
-        return x.narrow(dim, mg.model_index * n, n).contiguous()
+    def forward(ctx, x, mg, dim, sizes):
+        ctx.mg, ctx.dim, ctx.sizes = mg, dim, sizes
+        return x.narrow(dim, sum(sizes[:mg.model_index]), sizes[mg.model_index]).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return _cat_slots(_sum(_slot(g.contiguous(), ctx.mg), ctx.mg), ctx.dim), None, None
-
-
-def _cat_slots(buf: torch.Tensor, dim: int) -> torch.Tensor:
-    return torch.cat(list(buf.unbind(0)), dim=dim)
+        return _gather(g.contiguous(), ctx.dim, ctx.mg, ctx.sizes), None, None, None
 
 
 def all_reduce(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
@@ -120,42 +152,113 @@ def all_reduce(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     return _AllReduce.apply(x, mg)
 
 
-def gather_partial(x: torch.Tensor, dim: int, mg: ModelGroup) -> torch.Tensor:
+def all_max(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """Elementwise max of ``x`` over the model group: one sum of slots, then
+    a max over them, so every rank gets the same bits. Differentiable (a
+    partial output: a tie shares the cotangent as ``amax`` does)."""
+    return _AllReduce.apply(_slot(x, mg), mg).amax(dim=0)
+
+
+def gather_partial(x: torch.Tensor, dim: int, mg: ModelGroup,
+                   sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The ranks' ``x`` concatenated on ``dim`` in rank order, each rank to
-    use for its own part (attention's keys and values): the backward sums
-    the ranks' cotangents and takes this rank's slot."""
-    return _cat_slots(_AllReduce.apply(_slot(x, mg), mg), dim)
+    use for its own part (attention's keys and values); ``sizes`` are the
+    ranks' sizes on ``dim``. The backward sums the ranks' cotangents and
+    takes this rank's slot."""
+    sizes = _sizes(x, dim, mg, sizes)
+    return _cat_slots(_AllReduce.apply(_slot(_pad_to(x, dim, max(sizes)), mg), mg), dim,
+                      sizes)
 
 
-def gather_replicated(x: torch.Tensor, dim: int, mg: ModelGroup) -> torch.Tensor:
+def gather_replicated(x: torch.Tensor, dim: int, mg: ModelGroup,
+                      sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The ranks' ``x`` concatenated on ``dim`` in rank order, replicated
-    (the UNet's output): the backward takes this rank's slot."""
-    return _GatherReplicated.apply(x, mg, dim)
+    (the UNet's output); ``sizes`` are the ranks' sizes on ``dim``. The
+    backward takes this rank's slot."""
+    return _GatherReplicated.apply(x, mg, dim, _sizes(x, dim, mg, sizes))
 
 
-def scatter(x: torch.Tensor, dim: int, mg: ModelGroup) -> torch.Tensor:
-    """This rank's contiguous 1 / model_size of a replicated ``x`` on
-    ``dim`` (which the model size must divide); the backward gathers."""
-    if x.shape[dim] % mg.model_size:
-        raise ValueError(f"scatter: a model axis of {mg.model_size} does not divide "
-                         f"{x.shape[dim]} ({ITEM_15B}: ragged shards)")
-    return _Scatter.apply(x, mg, dim)
+def scatter(x: torch.Tensor, dim: int, mg: ModelGroup,
+            sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's contiguous block of a replicated ``x`` on ``dim``: of
+    ``sizes[rank]`` entries, by default ``split_sizes``'s even blocks. The
+    backward gathers."""
+    sizes = split_sizes(x.shape[dim], mg.model_size) if sizes is None else tuple(sizes)
+    if sum(sizes) != x.shape[dim] or len(sizes) != mg.model_size:
+        raise ValueError(f"scatter: shard sizes {sizes} of {x.shape[dim]} over "
+                         f"{mg.model_size} ranks")
+    return _Scatter.apply(x, mg, dim, sizes)
 
 
-def halo_rows(x: torch.Tensor, mg: ModelGroup, dim: int = 2) -> torch.Tensor:
-    """``x`` (this rank's rows of an image on ``dim``) with one row above
-    from the previous rank and one below from the next, zeros at the
-    image's edges, as a 3x3 convolution's padding has: one all_reduce of
-    every rank's first and last row. Differentiable (a halo row's
-    cotangent goes back to the rank that sent it)."""
+def _neighbours(mg: ModelGroup, sizes) -> Tuple[Optional[int], Optional[int]]:
+    """The nearest ranks above and below this one that hold rows (None at
+    the image's edge)."""
+    i = mg.model_index
+    above = next((j for j in range(i - 1, -1, -1) if sizes[j]), None)
+    below = next((j for j in range(i + 1, mg.model_size) if sizes[j]), None)
+    return above, below
+
+
+def _ends(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``'s first and last row on ``dim`` (zeros for an empty ``x``)."""
     n = x.shape[dim]
-    ends = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, n - 1, 1)], dim=dim)
-    both = _AllReduce.apply(_slot(ends, mg), mg)       # (M, ..., 2 rows, ...)
-    i, m = mg.model_index, mg.model_size
-    zero = torch.zeros_like(x.narrow(dim, 0, 1))
-    above = both[i - 1].narrow(dim, 1, 1) if i > 0 else zero
-    below = both[i + 1].narrow(dim, 0, 1) if i + 1 < m else zero
-    return torch.cat([above, x, below], dim=dim)
+    if n == 0:
+        shape = list(x.shape)
+        shape[dim] = 2
+        return x.new_zeros(shape)
+    return torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, n - 1, 1)], dim=dim)
+
+
+class _Halo(torch.autograd.Function):
+    """``x`` with the row above from the nearest rank above that has rows
+    and the row below from the nearest one below, zeros at the image's
+    edges: one sum of every rank's first and last rows. The backward is
+    the same exchange run backwards: the halo rows' cotangents go to the
+    ranks that sent them, which add them to their edge rows."""
+
+    @staticmethod
+    def forward(ctx, x, mg, dim, sizes):
+        ctx.mg, ctx.dim, ctx.sizes = mg, dim, sizes
+        both = _sum(_slot(_ends(x, dim), mg), mg)          # (M, ..., 2 rows, ...)
+        if x.shape[dim] == 0:
+            return x.clone()
+        above, below = _neighbours(mg, sizes)
+        zero = torch.zeros_like(x.narrow(dim, 0, 1))
+        up = both[above].narrow(dim, 1, 1) if above is not None else zero
+        down = both[below].narrow(dim, 0, 1) if below is not None else zero
+        return torch.cat([up, x, down], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mg, dim, sizes = ctx.mg, ctx.dim, ctx.sizes
+        n = g.shape[dim]
+        sent = _ends(g, dim) if n == 0 else torch.cat([g.narrow(dim, 0, 1),
+                                                      g.narrow(dim, n - 1, 1)], dim=dim)
+        both = _sum(_slot(sent, mg), mg)
+        if n == 0:
+            return g.clone(), None, None, None
+        above, below = _neighbours(mg, sizes)
+        dx = g.narrow(dim, 1, n - 2).clone()
+        # the rank above's bottom halo row is this rank's first row, the
+        # rank below's top halo row its last
+        if above is not None:
+            dx.narrow(dim, 0, 1).add_(both[above].narrow(dim, 1, 1))
+        if below is not None:
+            dx.narrow(dim, n - 3, 1).add_(both[below].narrow(dim, 0, 1))
+        return dx, None, None, None
+
+
+def halo_rows(x: torch.Tensor, mg: ModelGroup, dim: int = 2,
+              sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``x`` (this rank's rows of an image on ``dim``) with one row above
+    from the nearest rank above that has rows and one below from the
+    nearest one below, zeros at the image's edges, as a 3x3 convolution's
+    padding has: one all_reduce of every rank's first and last row.
+    ``sizes``: the ranks' rows (default: every rank has some); a rank with
+    none gets none. Any dtype (the int8 torso exchanges its codes).
+    Differentiable (a halo row's cotangent goes back to the rank that sent
+    it)."""
+    return _Halo.apply(x, mg, dim, _sizes(x, dim, mg, sizes))
 
 
 def decide(flag: torch.Tensor, mg: Optional[ModelGroup] = None) -> bool:

@@ -19,6 +19,10 @@ no model axis) is the data-parallel world of ``torchrun
 ``make_mesh``, ``batch_sharding``, ``replicated`` and ``shard_batch``
 place arrays on the devices of one process and have no counterpart in a
 process-per-card design.
+
+Where the JAX package's GSPMD pads a shard that the model size does not
+divide, the port cuts uneven shards by a plan (``plan_shards``,
+``split_sizes``), and the collectives take the plan's per-rank sizes.
 """
 from __future__ import annotations
 
@@ -31,8 +35,45 @@ import torch.distributed as tdist
 
 from free_hunch_tpu_torch.parallel.dist import get_rank, get_world_size
 
-#: what the raises of the model axis name
-ITEM_15B = "ROADMAP item 15b"
+
+def split_sizes(n: int, m: int) -> Tuple[int, ...]:
+    """``n`` items over ``m`` ranks in contiguous blocks, as even as they
+    go: the first ``n % m`` ranks take one more; ranks past ``n`` take
+    none. The d blocks of the covariance state, and the deepest level's
+    rows of a height shard."""
+    q, r = divmod(int(n), int(m))
+    return tuple(q + (i < r) for i in range(m))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """The rows of every level of a UNet torso that each rank of a model
+    group holds: ``rows[level][rank]``, level 0 the input's resolution,
+    each next level half the height (``plan_shards`` says the rule)."""
+    rows: Tuple[Tuple[int, ...], ...]
+
+
+def plan_shards(height: int, levels: int, m: int) -> ShardPlan:
+    """The height shard of a torso of ``levels`` levels (``levels - 1``
+    stride-2 steps) over ``m`` ranks. The rule: the deepest level's
+    ``height / 2^(levels-1)`` rows are split by ``split_sizes``, and a rank
+    holds at level l its deepest rows times 2^(levels-1-l). So every
+    boundary between two ranks at a level before a stride-2 step lies on an
+    even row, and a 3x3 stride-2 conv or a 2x2 average pool on a rank's rows
+    sees the windows of the unsharded tensor; each stride-2 step halves a
+    rank's rows, and each upsampling doubles them back. Ranks past the
+    deepest level's rows (5 or 8 ranks over 4) hold none at any level. Any
+    split with unsharded windows gives the unsharded result, as GSPMD's
+    padded shards do; this one needs no exchange but the halos. Raises
+    where 2^(levels-1) does not divide the height, which the unsharded
+    model does not take either."""
+    unit = 2 ** (levels - 1)
+    if height % unit:
+        raise ValueError(f"height shard: {levels} levels halve the height {levels - 1} "
+                         f"times, which {height} rows do not allow")
+    deep = split_sizes(height // unit, m)
+    return ShardPlan(tuple(tuple(u * 2 ** (levels - 1 - lv) for u in deep)
+                           for lv in range(levels)))
 
 
 def parse_mesh_shape(mesh_shape: str, n_devices: Optional[int] = None) -> Dict[str, int]:

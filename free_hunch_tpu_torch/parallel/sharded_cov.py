@@ -1,9 +1,11 @@
 """The Free Hunch covariance state sharded on d over a model group.
 
 Counterpart of ``free_hunch_tpu/parallel/sharded_cov.py`` (:29-62). Each
-rank of the group holds one contiguous d / model_size block of ``diag``
-(B, d) and of ``Ut`` (B, K, d), as ``P(model)`` on their last axis places
-them; ``M`` and ``k`` are replicated. A matvec is
+rank of the group holds one contiguous block of d (``d_block``: d /
+model_size entries, the first d % model_size ranks one more, where GSPMD
+would pad the last block) of ``diag`` (B, d) and of ``Ut`` (B, K, d), as
+``P(model)`` on their last axis places them; ``M`` and ``k`` are
+replicated. A matvec is
 
     Sigma0 @ v = diag * v + (M @ allreduce(Ut v)) @ Ut
 
@@ -17,17 +19,15 @@ import torch
 
 from free_hunch_tpu_torch.ops.lowrank import LowRank, Reduce
 from free_hunch_tpu_torch.parallel import collectives as coll
-from free_hunch_tpu_torch.parallel.mesh import ITEM_15B, ModelGroup
+from free_hunch_tpu_torch.parallel.mesh import ModelGroup, split_sizes
 
 
 def d_block(d: int, mg: ModelGroup) -> slice:
-    """This rank's contiguous block of d; raises where the model size does
-    not divide d."""
-    if d % mg.model_size:
-        raise ValueError(f"d-sharded state: a model axis of {mg.model_size} does not divide "
-                         f"d = {d} ({ITEM_15B}: ragged shards)")
-    n = d // mg.model_size
-    return slice(mg.model_index * n, (mg.model_index + 1) * n)
+    """This rank's contiguous block of d (``split_sizes``: as even as the
+    model size allows)."""
+    sizes = split_sizes(d, mg.model_size)
+    start = sum(sizes[:mg.model_index])
+    return slice(start, start + sizes[mg.model_index])
 
 
 def shard_state(cov: LowRank, mg: ModelGroup) -> LowRank:
@@ -46,7 +46,7 @@ def model_reduce(mg: ModelGroup) -> Reduce:
     return lambda t: coll.all_reduce(t, mg)
 
 
-def gather_d(v: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
-    """The whole (B, d) vector from every rank's (B, d / model_size) block,
-    replicated."""
-    return coll.gather_replicated(v, v.dim() - 1, mg)
+def gather_d(v: torch.Tensor, mg: ModelGroup, d: int) -> torch.Tensor:
+    """The whole (..., d) vector from every rank's ``d_block`` on the last
+    axis, replicated."""
+    return coll.gather_replicated(v, v.dim() - 1, mg, split_sizes(d, mg.model_size))

@@ -491,3 +491,128 @@ def test_int8_layers_on_the_card_match_the_cpu():
         y0, y1 = y0.detach(), y1.detach()
         torch.testing.assert_close(y1, y0, rtol=0, atol=0.02 * float(y0.abs().max()))
         torch.testing.assert_close(g1, g0, rtol=0, atol=0.02 * float(g0.abs().max()))
+
+
+# -- the model axis's remainders: uneven and empty shards, K2's shard entries,
+# -- K3's separate height and width padding -----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,silu,rows", [
+    ((2, 12, 16, 64), torch.float32, True, (6, 0, 4, 2)),
+    ((8, 96, 64, 256), torch.bfloat16, True, (40, 40, 16)),
+    ((2, 3, 8, 512), torch.bfloat16, False, (1, 1, 1, 0, 0)),
+], ids=["f32_with_an_empty_shard", "bf16_ragged_3", "deep_level_of_5"])
+def test_k1_apply_entry_weights_unequal_and_zero_counts(shape, dtype, silu, rows):
+    """Shards of unequal rows, one of none: each shard's stats entry (none
+    launched for the empty one, whose partial is (0, 0, 0)), then each
+    shard's apply entry on the stacked (mean, M2, count) partials, against
+    the plain version of the whole tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    starts = [sum(rows[:i]) for i in range(len(rows))]
+    parts = [x[:, s:s + r].contiguous() for s, r in zip(starts, rows)]
+    before = dict(gn.sharded_launches)
+    stats = torch.stack([gn.shard_stats_cuda(p) for p in parts])
+    y = torch.cat([gn.shard_apply_cuda(p, stats, g, b, 32, 1e-5, silu) for p in parts], dim=1)
+    torch.cuda.synchronize()
+    filled = sum(r > 0 for r in rows)
+    assert gn.sharded_launches == {k: v + filled for k, v in before.items()}
+    if 0 in rows:
+        assert float(stats[rows.index(0), ..., 2].abs().max()) == 0.0
+    want = gn.groupnorm_silu_plain(x, g, b, 32, 1e-5, silu)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+        assert float((y.float() - want.float()).abs().max()) <= 2 * float(ulp)
+
+
+def _k2_sharded_in_one_process(x, g, b, rows, full=False):
+    """K2's shard entries on the height shards ``rows`` of x in one
+    process: every shard's stats entry, the stacked partials, every shard's
+    merge entry, the max of the shards' flagged abs-max (the group's
+    max-merge) where a sample is flagged, every shard's apply entry; the
+    codes concatenated and the scale (equal on every shard)."""
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    starts = [sum(rows[:i]) for i in range(len(rows))]
+    shards = [x[:, s:s + r].contiguous() for s, r in zip(starts, rows)]
+    parts = torch.stack([gq.shard_quant_stats_cuda(p) for p in shards])
+    merged = [gq.shard_quant_merge_cuda(p, parts, g, b, full=full) for p in shards]
+    flags = torch.stack([f for _, f, _ in merged])
+    assert bool((flags == flags[0]).all())
+    amax = torch.stack([a for _, _, a in merged]).amax(0)
+    outs = [gq.shard_quant_apply_cuda(p, w, amax if bool(f.any()) else a, g, b)
+            for p, (w, f, a) in zip(shards, merged)]
+    scales = torch.stack([s for _, s in outs])
+    assert bool((scales == scales[0]).all())
+    return torch.cat([xq for xq, _ in outs], dim=1), scales[0], flags[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,rows", [
+    ((8, 256, 256, 256), torch.bfloat16, (128, 128)),
+    ((8, 64, 64, 512), torch.bfloat16, (24, 24, 16)),
+    ((2, 32, 32, 64), torch.float32, (16, 0, 16)),
+    ((3, 5, 7, 96), torch.float32, (2, 2, 1)),
+], ids=["in_norm_half", "ragged_3", "empty_shard_f32", "odd"])
+def test_k2_shard_entries_match_plain_on_the_card(shape, dtype, rows):
+    """K2's stats, merge and apply entries on the height shards of one
+    tensor against the unsharded plain version (``check_gn_quant``'s
+    limits: the scale to 1e-6 relative, a code off by one at a tie on at
+    most 1e-4 of them); the flagged route (``full``: the full abs-max pass
+    and the max-merge) gives the same codes and scale. With sample 0's
+    affine in the SiLU's negative lobe that sample is flagged by itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import gn_quant as gq
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, g, b = _gn_quant_inputs(shape, dtype, gen)
+    before = dict(gq.sharded_launches)
+    xq, s, flags = _k2_sharded_in_one_process(x, g, b, rows)
+    filled = sum(r > 0 for r in rows)
+    assert gq.sharded_launches == dict(stats=before["stats"] + filled,
+                                       merge=before["merge"] + len(rows),
+                                       apply=before["apply"] + len(rows))
+    wq, ws = gq.gn_silu_quant_plain(x, g, b, 32, 1e-5)
+    assert float(((s - ws).abs() / ws).max()) <= 1e-6
+    d = (xq.int() - wq.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
+    fq, fs, fflags = _k2_sharded_in_one_process(x, g, b, rows, full=True)
+    assert bool(fflags.all()) and torch.equal(fs, s) and torch.equal(fq, xq)
+    gneg, bneg = g.clone(), b.clone()
+    gneg[0] *= 0.2
+    bneg[0] = bneg[0] * 0.1 - 1.28
+    nq, ns, nflags = _k2_sharded_in_one_process(x, gneg, bneg, rows)
+    wq, ws = gq.gn_silu_quant_plain(x, gneg, bneg, 32, 1e-5)
+    assert int(nflags[0]) == 1 and float(((ns - ws).abs() / ws).max()) <= 1e-6
+    d = (nq.int() - wq.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,o,pad", [
+    ((8, 130, 256, 256), 256, (0, 1)),
+    ((8, 34, 64, 512), 512, (0, 1)),
+    ((2, 10, 8, 1024), 1024, (0, 1)),
+    ((2, 9, 11, 48), 64, (1, 0)),
+    ((3, 7, 5, 32), 16, (2, 1)),
+], ids=["halo_256px_half", "halo_64px", "halo_8px_split", "width_only", "wide_height"])
+def test_int8_conv_kernel_takes_separate_height_and_width_padding(x_shape, o, pad):
+    """K3 with a height padding apart from its width padding (a halo'd
+    shard's (0, 1)): bitwise its plain version, and the rows of a halo'd
+    shard's output bitwise the unsharded output's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from free_hunch_tpu_torch.ops import quant as q
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    xq, wk = _int8(x_shape, gen), _int8((o, 3, 3, x_shape[-1]), gen)
+    check_int8_conv(xq, wk, pad, gen)
+    if pad == (0, 1):
+        whole = q.int8_conv_cuda(xq, wk, None, None, 1, torch.int32)
+        part = q.int8_conv_cuda(xq, wk, None, None, (0, 1), torch.int32)
+        assert torch.equal(part, whole[:, 1:-1])

@@ -12,7 +12,9 @@ steps, batch 1, four bundled images): ``data:1,model:2`` (two ranks) and
 * ``results.json`` counts each image once, and its totals are the
   sample-weighted mean of the journals; one journal per data group.
 * A resumed run replays every group's journal on all of its ranks.
-* DDNM+ with a model axis raises on every rank, naming ROADMAP item 15b.
+* DDNM+ with a model axis (``data:1,model:2``; ``data:1,model:3`` on the
+  int8 torso) runs the height-sharded epsilon UNet: one journal, each
+  image's metrics within 1e-2 of the world of one's.
 """
 import json
 import uuid
@@ -107,8 +109,31 @@ def test_resume_replays_every_group_journal(runs, setup32):
         assert after[k] == before[k]
 
 
-def test_ddnm_with_a_model_axis_raises_on_every_rank(tmp_path, setup32):
-    outs = _world(tmp_path, setup32, "ddnm", "data:1,model:2", 2, ok=False,
-                  conditioning_mechanism="ddnm", operator_name="inpainting")
-    for out in outs:
-        assert "DDNM+ takes no model axis" in out and "item 15b" in out
+DDNM = dict(conditioning_mechanism="ddnm", operator_name="inpainting", num_steps=4)
+
+
+@pytest.mark.parametrize("mesh_shape,world,over", [
+    ("data:1,model:2", 2, {}), ("data:1,model:3", 3, dict(quant="int8"))],
+    ids=["model2", "model3_int8"])
+def test_ddnm_with_a_model_axis_equals_the_world_of_one(tmp_path, setup32, monkeypatch,
+                                                       mesh_shape, world, over):
+    """DDNM+ through the driver (``eval_ddnm.DDNMEvaluator``) on the
+    height-sharded epsilon UNet (at model:3 ragged, on the dynamic int8
+    torso), its SVD algebra replicated on the group's ranks: one journal,
+    each image once, per-image metrics within 1e-2 of the world of one."""
+    _world(tmp_path, setup32, "ddnm", mesh_shape, world, **dict(DDNM, **over))
+    out = tmp_path / "ddnm"
+    results = json.loads((out / "results.json").read_text())
+    assert results["images"] == TOTAL
+    assert [p.name for p in out.glob("metrics_rank*.jsonl")] == ["metrics_rank00.jsonl"]
+    monkeypatch.setattr(teval, "get_rank", lambda: 0)
+    monkeypatch.setattr(teval, "get_world_size", lambda: 1)
+    from free_hunch_tpu_torch.eval_ddnm import DDNMEvaluator
+    args = _args(tmp_path, setup32, "alone", **dict(FH, **DDNM, **over))
+    DDNMEvaluator(tcfg.load_config(args=args), device="cpu").run()
+    want = _records(tmp_path / "alone", 0)
+    got = _records(out, 0)
+    assert [r["batch"] for r in got] == [r["batch"] for r in want]
+    for g, w in zip(got, want):
+        for k in METRICS:
+            assert abs(g[k] - w[k]) <= 1e-2, (g["batch"], k, g[k], w[k])

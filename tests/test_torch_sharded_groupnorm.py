@@ -2,11 +2,12 @@
 groupnorm_silu_sharded``: on the CPU its plain version, two centred
 all_reduces) in CPU gloo worlds of two and four ranks, forward and
 backward, against the port's unsharded plain version and the JAX
-package's ``_reference`` (``free_hunch_tpu/ops/pallas_groupnorm.py:38``);
-``decide`` across ranks; and the model axis's raises, which need no world:
-a ragged height, the int8 torso, a model size that does not divide the
-world; and a model group of one rank, which leaves the UNet and the
-Free Hunch state whole."""
+package's ``_reference`` (``free_hunch_tpu/ops/pallas_groupnorm.py:38``),
+on even shards and on uneven ones (three ranks over 8 rows); ``decide``
+across ranks; and what needs no world: the shard plan
+(``parallel/mesh.py::plan_shards``), a model size that does not divide the
+world, and a model group of one rank, which leaves the UNet and the Free
+Hunch state whole."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,17 +15,16 @@ import pytest
 import torch
 
 from free_hunch_tpu.ops.pallas_groupnorm import _reference as jreference
-from free_hunch_tpu_torch.models.unet import (GroupNorm32, UNetConfig, UNetModel,
-                                              check_shard_heights)
+from free_hunch_tpu_torch.models.unet import GroupNorm32, UNetConfig, UNetModel
 from free_hunch_tpu_torch.ops.groupnorm import groupnorm_silu_plain
 from free_hunch_tpu_torch.parallel import mesh
 from tests._torch_parity import one_thread, tiny_cfg_kwargs  # noqa: F401
 from tests._torch_sharded import run_world
 
-SHAPE = (2, 8, 4, 64)   # (N, H, W, C): H shards over 2 and 4 ranks
+SHAPE = (2, 8, 4, 64)   # (N, H, W, C): H shards over 2 and 4 ranks, and 3 unevenly
 
 
-@pytest.fixture(scope="module", params=[2, 4])
+@pytest.fixture(scope="module", params=[2, 3, 4])
 def world(request, tmp_path_factory):
     rng = np.random.default_rng(3)
     f = lambda *s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32)  # noqa: E731
@@ -74,28 +74,36 @@ def test_decide_agrees_or_raises_on_every_rank(world):
     assert [o["group"] for o in outs] == [(0, 1, r, m) for r in range(m)]
 
 
-@pytest.mark.parametrize("height,m,level", [(32, 3, 0), (32, 32, 0), (32, 16, 1), (8, 8, 0)])
-def test_a_ragged_height_raises_naming_the_level(height, m, level):
-    cfg = UNetConfig(**dict(tiny_cfg_kwargs(), channel_mult=(1, 2, 2)), dtype=torch.float32,
-                     remat=False)
-    with pytest.raises(ValueError, match=f"level {level}.*item 15b"):
-        check_shard_heights(cfg, height, m)
-    check_shard_heights(cfg, 32, 4)  # 32 and 16 rows: shards of 8 and 4
+@pytest.mark.parametrize("height,levels,m", [(32, 2, 3), (32, 2, 5), (8, 2, 8), (32, 3, 3),
+                                             (256, 6, 3), (256, 6, 5), (256, 6, 2)])
+def test_the_shard_plan_keeps_every_window_of_a_stride_2_step_on_one_rank(height, levels, m):
+    """Every rank's rows at a level sum to the level's height, each
+    boundary before a stride-2 step lies on an even row, each step halves
+    every rank's rows, and only ranks past the deepest level's rows hold
+    none."""
+    plan = mesh.plan_shards(height, levels, m)
+    assert len(plan.rows) == levels
+    for lv, rows in enumerate(plan.rows):
+        assert len(rows) == m and sum(rows) == height >> lv
+        if lv < levels - 1:
+            assert all(sum(rows[:i]) % 2 == 0 for i in range(m))
+            assert plan.rows[lv + 1] == tuple(r // 2 for r in rows)
+    deep = plan.rows[-1]
+    assert max(deep) - min(deep) <= 1
+    assert [r == 0 for r in deep] == sorted(r == 0 for r in deep)
+    assert (0 in deep) == (m > height >> (levels - 1))
 
 
-def test_a_ragged_height_raises_in_the_forward():
-    cfg = UNetConfig(**tiny_cfg_kwargs(), dtype=torch.float32, remat=False)
-    group = mesh.ModelGroup(data_index=0, data_size=1, model_index=0, model_size=3,
-                            ranks=(0, 1, 2))
-    with pytest.raises(ValueError, match="level 0.*item 15b"):
-        UNetModel(cfg, model_group=group)(torch.zeros(1, 3, 32, 32), torch.zeros(1))
+@pytest.mark.parametrize("n,m", [(3072, 5), (3072, 2), (7, 3), (2, 4)])
+def test_split_sizes_cuts_even_contiguous_blocks(n, m):
+    sizes = mesh.split_sizes(n, m)
+    assert sum(sizes) == n and max(sizes) - min(sizes) <= 1
+    assert list(sizes) == sorted(sizes, reverse=True)
 
 
-def test_int8_with_a_model_axis_raises():
-    group = mesh.ModelGroup(data_index=0, data_size=1, model_index=0, model_size=2,
-                            ranks=(0, 1))
-    with pytest.raises(ValueError, match="item 15b"):
-        UNetModel(UNetConfig(**tiny_cfg_kwargs(), quant="int8"), model_group=group)
+def test_a_height_the_levels_cannot_halve_raises():
+    with pytest.raises(ValueError, match="halve"):
+        mesh.plan_shards(30, 3, 2)
 
 
 @pytest.mark.parametrize("spec,world", [("data:1,model:2", 3), ("model:4", 6),
