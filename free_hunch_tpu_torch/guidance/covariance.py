@@ -11,7 +11,7 @@ d-block.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -99,12 +99,15 @@ def transport_score_two_inverse(cov: LowRank, cov_next: LowRank, sigma, sigma_ne
 
 def space_update(cov: LowRank, sigma, x: torch.Tensor, x_next: torch.Tensor,
                  mean_at_x: torch.Tensor, mean_at_x_next: torch.Tensor,
-                 params: CovParams = CovParams(), reduce: Reduce = whole) -> LowRank:
+                 params: CovParams = CovParams(), reduce: Reduce = whole,
+                 resets: Optional[torch.Tensor] = None) -> LowRank:
     """BFGS rank-2 update per row after observing the denoiser at two points
     with the same sigma:
     Sigma <- Sigma - (S dx)(S dx)^T / (dx^T S dx) + de de^T / (dx^T de),
     with de = sigma^2 (D(x') - D(x)), dx = x' - x. Rows whose pair fails the
-    guards keep their state."""
+    guards keep their state. ``resets``, where given, is a (B,) int64 count
+    to which each row whose state the append's compress reset adds one, in
+    place (``lowrank.append_pair``)."""
     dtype = x.dtype
     dx = x_next - x
     de = sigma**2 * (mean_at_x_next - mean_at_x)
@@ -129,4 +132,8 @@ def space_update(cov: LowRank, sigma, x: torch.Tensor, x_next: torch.Tensor,
     if params.project_to_diagonal:
         new_diag = cov.diag + gamma[:, None] * de * de + c_neg[:, None] * sv * sv
         return cov._replace(diag=new_diag)
-    return lowrank.select(valid, lowrank.append_pair(cov, sv, c_neg, de, gamma, reduce), cov)
+    reset = None if resets is None else torch.zeros_like(resets)
+    appended = lowrank.append_pair(cov, sv, c_neg, de, gamma, reduce, reset)
+    if resets is not None:
+        resets += reset * valid
+    return lowrank.select(valid, appended, cov)

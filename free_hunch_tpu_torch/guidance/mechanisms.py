@@ -256,6 +256,9 @@ class FreeHunchState(NamedTuple):
     cg_resnorm: torch.Tensor   # () f32 batch-mean final residual norm
     cg_optfrac: torch.Tensor   # () f32 fraction of rows converged to rtol
     cg_host_syncs: int         # host syncs of the last solve
+    # (B,) int64: the times each row's low-rank state was reset to k = 0
+    # (its Gram matrix did not factor in a compress); None counts from zero
+    cov_resets: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -389,7 +392,8 @@ class FreeHunch(ConditioningMechanism):
             cov=cov, prev_sigma=0.0, prev_x=zeros, prev_mean=zeros,
             prev_u=torch.zeros(u_shape, dtype=self._adt, device=dev), step=0,
             cg_niter=0, cg_resnorm=torch.zeros((), device=dev),
-            cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
+            cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0,
+            cov_resets=torch.zeros((batch,), dtype=torch.int64, device=dev))
 
     def _whole(self, v, d: int):
         """A (B, d) vector whole: gathered from the d-blocks when sharded."""
@@ -426,6 +430,8 @@ class FreeHunch(ConditioningMechanism):
             return has_prev and not self._decide(torch.all(torch.abs(x_t - state.prev_x) < 1e-12))
 
         cov = state.cov
+        resets = (torch.zeros(x_t.shape[:1], dtype=torch.int64, device=x_t.device)
+                  if state.cov_resets is None else state.cov_resets.clone())
         if self.do_space_updates:
             prev_x_b = self._to_basis(state.prev_x)
             prev_mean_b = self._to_basis(state.prev_mean)
@@ -458,7 +464,8 @@ class FreeHunch(ConditioningMechanism):
                     curvature_guard=self.bfgs_curvature_guard,
                     secant_novelty_min=self.bfgs_secant_novelty_min)
                 cov = cov_mod.space_update(cov, sigma, prev_x_b, self._to_basis(x_t),
-                                           prev_mean_b, self._to_basis(x0_a), params, reduce)
+                                           prev_mean_b, self._to_basis(x0_a), params, reduce,
+                                           resets)
         elif sigma_changed:
             cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
 
@@ -540,5 +547,5 @@ class FreeHunch(ConditioningMechanism):
             step=state.step + 1, cg_niter=cg_info.niter,
             cg_resnorm=torch.mean(cg_info.residual_norm).float(),
             cg_optfrac=torch.mean(cg_info.optimal.float()),
-            cg_host_syncs=cg_info.host_syncs)
+            cg_host_syncs=cg_info.host_syncs, cov_resets=resets)
         return x0_new, new_state

@@ -1,9 +1,12 @@
 """Batched preconditioned conjugate gradients with per-row freezing.
 
-Counterpart of ``free_hunch_tpu/ops/cg.py`` (``cg_batch`` :37-213), with all
+Counterpart of ``free_hunch_tpu/ops/cg.py``: ``cg_batch`` (:37-213), with all
 of its behaviour: per-row active masks, ``min_iter``, the scale-invariant
 p^T A p breakdown test, best-iterate tracking (or the last iterate with
-``track_best=False``), and the stall counter with its floor check.
+``track_best=False``), and the stall counter with its floor check; ``cg``
+(:216-225), one system of any shape; ``cg_solve`` (:228-235), the
+differentiable symmetric solve, whose backward is a second CG solve (the
+JAX package's ``lax.custom_linear_solve(symmetric=True)``).
 
 ``lax.while_loop`` becomes a Python loop. Its ``any(active)`` test and the
 floor check's ``any(stall_hit & active)`` each read one device boolean on
@@ -126,3 +129,48 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
     ret_res = best if track_best else torch.sqrt(_dot(r, r))
     return (bx if track_best else x), CGInfo(
         niter=i, residual_norm=ret_res, optimal=ret_res <= stop, host_syncs=syncs)
+
+
+def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+       precond: Optional[Callable] = None, rtol=1e-3, atol=0.0, maxiter: int = 1000):
+    """Single-system CG on an arbitrarily-shaped b; matvec keeps b's shape."""
+    shape = b.shape
+
+    def flat(fn):
+        return lambda v: fn(v.reshape(shape)).reshape(1, -1)
+
+    x, info = cg_batch(flat(matvec), b.reshape(1, -1),
+                       x0=None if x0 is None else x0.reshape(1, -1),
+                       precond=None if precond is None else flat(precond),
+                       rtol=rtol, atol=atol, maxiter=maxiter)
+    return x.reshape(shape), info
+
+
+class _SymmetricSolve(torch.autograd.Function):
+    """x = A^-1 b by CG; the cotangent of b is A^-1 g, a second CG solve
+    (A symmetric, so the transposed solve is the solve itself)."""
+
+    @staticmethod
+    def forward(ctx, b, matvec, rtol, maxiter):
+        ctx.matvec, ctx.rtol, ctx.maxiter = matvec, rtol, maxiter
+        return cg(matvec, b.detach(), rtol=rtol, maxiter=maxiter)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return cg(ctx.matvec, g, rtol=ctx.rtol, maxiter=ctx.maxiter)[0], None, None, None
+
+
+def cg_solve(matvec: Callable, b: torch.Tensor, rtol=1e-5, maxiter: int = 1000) -> torch.Tensor:
+    """Differentiable symmetric solve A x = b, implicitly differentiated as
+    ``lax.custom_linear_solve(symmetric=True)`` is: the gradient of b is one
+    more CG solve against the cotangent, and tensors that ``matvec`` closes
+    over get -A^-1 (dA x) through the second term below, whose value is
+    exactly 0 (CG on b = 0 returns its zero start)."""
+    x = _SymmetricSolve.apply(b, matvec, rtol, maxiter)
+    if not torch.is_grad_enabled():
+        return x
+    with torch.enable_grad():
+        ax = matvec(x.detach())
+    if not ax.requires_grad:
+        return x
+    return x - _SymmetricSolve.apply(ax - ax.detach(), matvec, rtol, maxiter)

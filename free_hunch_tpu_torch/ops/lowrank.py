@@ -24,7 +24,7 @@ is written out:
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -122,13 +122,24 @@ def compress(rep: LowRank, target_rank: int, reduce: Reduce = whole) -> LowRank:
     ``target_rank`` eigen-directions of U M U^T with the largest |eigenvalue|
     (with G = U^T U = L L^T and L^T M L = Q Lam Q^T, U M U^T = W Lam W^T
     with orthonormal W = U L^-T Q)."""
+    return _compress(rep, target_rank, reduce)[0]
+
+
+def _compress(rep: LowRank, target_rank: int, reduce: Reduce):
+    """``compress`` and the (B,) bool of the rows it reset to k = 0 because
+    their Gram matrix did not factor."""
     check_full_f32(rep.Ut)
     K = rep.capacity
     dtype, dev = rep.diag.dtype, rep.diag.device
     eye = torch.eye(K, dtype=dtype, device=dev)
     G = _sym(reduce(torch.bmm(rep.Ut, rep.Ut.transpose(1, 2))))
     jitter = (G.diagonal(dim1=-2, dim2=-1).sum(-1) / K) * 1e-7 + 1e-30
-    L = torch.linalg.cholesky(G + jitter[:, None, None] * eye)
+    L, info = torch.linalg.cholesky_ex(G + jitter[:, None, None] * eye)
+    # a row whose Gram matrix does not factor (columns in a space of fewer
+    # dimensions than K, as at d = 2) keeps no column, which is what the JAX
+    # package's NaN factor gives there: every comparison with NaN is False
+    factored = info == 0
+    L = torch.where(factored[:, None, None], L, eye)
     H = _sym(L.transpose(1, 2) @ rep.M @ L)
     lam, Q = torch.linalg.eigh(H)
     Wt = Q.transpose(1, 2) @ torch.linalg.solve_triangular(L, rep.Ut, upper=False)
@@ -137,12 +148,12 @@ def compress(rep: LowRank, target_rank: int, reduce: Reduce = whole) -> LowRank:
     Wt_sorted = torch.gather(Wt, 1, order[:, :, None].expand_as(Wt))
     tiny = torch.finfo(dtype).tiny
     strong = lam_sorted.abs() > 1e-6 * lam_sorted[:, :1].abs() + tiny
-    col_mask = (torch.arange(K, device=dev) < target_rank)[None, :] & strong
+    col_mask = (torch.arange(K, device=dev) < target_rank)[None, :] & strong & factored[:, None]
     k_new = col_mask.sum(-1).to(torch.int64)
     Ut_new = torch.where(col_mask[:, :, None], Wt_sorted, torch.zeros((), dtype=dtype, device=dev))
     M_new = torch.diag_embed(torch.where(col_mask, lam_sorted,
                                          torch.ones((), dtype=dtype, device=dev)))
-    return LowRank(diag=rep.diag, Ut=Ut_new, M=M_new, k=k_new)
+    return LowRank(diag=rep.diag, Ut=Ut_new, M=M_new, k=k_new), ~factored
 
 
 def select(mask: torch.Tensor, a: LowRank, b: LowRank) -> LowRank:
@@ -154,17 +165,22 @@ def select(mask: torch.Tensor, a: LowRank, b: LowRank) -> LowRank:
 
 
 def append_pair(rep: LowRank, col_a: torch.Tensor, w_a: torch.Tensor,
-                col_b: torch.Tensor, w_b: torch.Tensor, reduce: Reduce = whole) -> LowRank:
+                col_b: torch.Tensor, w_b: torch.Tensor, reduce: Reduce = whole,
+                resets: Optional[torch.Tensor] = None) -> LowRank:
     """Representation of (A + w_a a a^T + w_b b b^T) per row.
 
     Columns are unit-normalised (norms absorbed into the inner weights). Rows
     that would overflow their capacity are first compressed to their best
     (capacity - 2)-rank approximation. One host sync decides whether any row
-    needs that."""
+    needs that. ``resets``, where given, is a (B,) int64 count to which
+    each row that compress reset to k = 0 adds one, in place."""
     K = rep.capacity
     need = rep.k + 2 > K
     if bool(need.any()):
-        rep = select(need, compress(rep, K - 2, reduce), rep)
+        small, reset = _compress(rep, K - 2, reduce)
+        rep = select(need, small, rep)
+        if resets is not None:
+            resets += need & reset
     k = rep.k
     tiny = torch.finfo(col_a.dtype).tiny
     n2a, n2b = reduce(torch.stack([torch.sum(col_a * col_a, dim=-1),

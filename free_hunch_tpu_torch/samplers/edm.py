@@ -200,7 +200,10 @@ def sample_loop(denoise: Callable, mechanism, noise: torch.Tensor, y: torch.Tens
     value: the JAX package's dict (``cg_niter`` (num_steps, 2) int32,
     ``cg_resnorm`` and ``cg_optfrac`` (num_steps, 2) f32; column 1 is
     -1 / 0 / 1 on Euler steps) plus ``host_syncs``, the CG loop's device
-    reads over the run. Sets the port's precision policy (``use_full_f32``)."""
+    reads over the run, and ``cov_resets``, the times a row's covariance
+    state was reset to k = 0 over the run (Free Hunch's ``cov_resets``;
+    0 for the other mechanisms). Sets the port's precision policy
+    (``use_full_f32``)."""
     use_full_f32()
     use_heun = np.asarray(xs["use_heun"], bool)
     num_steps = use_heun.shape[0]
@@ -244,6 +247,8 @@ def sample_loop(denoise: Callable, mechanism, noise: torch.Tensor, y: torch.Tens
                     cg_resnorm=torch.stack(resn).cpu(),
                     cg_optfrac=torch.stack(optf).cpu(),
                     host_syncs=host_syncs)
+        resets = getattr(gstate, "cov_resets", None)
+        diag["cov_resets"] = 0 if resets is None else int(resets.sum())
         return x, traj, diag
     return x, traj
 

@@ -1,15 +1,20 @@
 """Construction of objects from dotted names (the config names the dataset
-class).
+class), and ``open_url``.
 
-Counterpart of ``free_hunch_tpu/utils/dynamic.py`` without ``open_url``.
-The JAX package's dataset class name and the reference's map to the port's
-class, so a config written for either builds the port's dataset.
+Counterpart of ``free_hunch_tpu/utils/dynamic.py``. The JAX package's
+dataset class name and the reference's map to the port's class, so a
+config written for either builds the port's dataset. ``open_url`` opens
+local paths, ``file://`` URLs and, for other URLs, only a file already in
+the download cache: nothing is fetched.
 """
 from __future__ import annotations
 
+import glob
+import hashlib
 import importlib
+import os
 import re
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 _ALIASES = {
     "free_hunch_tpu.data.dataset.ImageFolderDataset":
@@ -54,3 +59,24 @@ def construct_class_by_name(*args, class_name: str, **kwargs) -> Any:
 
 def is_url(obj: Any) -> bool:
     return isinstance(obj, str) and re.match(r"^[a-z]+://", obj) is not None
+
+
+def open_url(url: str, cache_dir: Optional[str] = None, return_filename: bool = False):
+    """Open (``rb``) a local path, a ``file://`` URL, or a URL whose file is
+    in ``cache_dir`` (default ``$XDG_CACHE_HOME/free_hunch_tpu``, else
+    ``~/.cache/free_hunch_tpu``) as ``<md5 of the url>_<name>``; with
+    ``return_filename`` the path instead. Any other URL raises ``IOError``:
+    nothing is downloaded."""
+    if not is_url(url):
+        return url if return_filename else open(url, "rb")
+    if url.startswith("file://"):
+        path = url[len("file://"):]
+        return path if return_filename else open(path, "rb")
+    cache_dir = cache_dir or os.path.join(
+        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")), "free_hunch_tpu")
+    url_md5 = hashlib.md5(url.encode("utf-8")).hexdigest()
+    hits = sorted(glob.glob(os.path.join(cache_dir, f"{url_md5}_*")))
+    if hits:
+        return hits[0] if return_filename else open(hits[0], "rb")
+    raise IOError(f"cannot fetch {url!r}: the port downloads nothing, and {cache_dir} holds "
+                  f"no cache entry (a file named {url_md5}_<name>)")

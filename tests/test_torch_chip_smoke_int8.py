@@ -17,6 +17,7 @@ import torch
 import chip_smoke as cs
 from free_hunch_tpu_torch.ops import gn_quant as gq
 from free_hunch_tpu_torch.ops import quant as q
+from tests._torch_parity import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

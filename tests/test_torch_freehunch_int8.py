@@ -13,7 +13,7 @@ from free_hunch_tpu.models.precond import IDDPMLinearPrecond as JPrecond
 from free_hunch_tpu.samplers import edm as jedm
 from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond as TPrecond
 from free_hunch_tpu_torch.samplers import edm as tedm
-from tests._torch_parity import RES, quant_pair
+from tests._torch_parity import RES, one_thread, quant_pair  # noqa: F401
 from tests.test_torch_freehunch import SHAPE, _mechs, prior_dir  # noqa: F401
 
 F32 = np.float32

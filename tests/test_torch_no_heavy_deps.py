@@ -1,6 +1,7 @@
 """The card's machine has no PIL, no PyYAML, no OpenCV and no diffusers. In
 a fresh interpreter where importing any of them fails, the port's driver
-modules (and the multi-process runtime and the SD-VAE) import, a bundled PNG reads through the dataset at its own 256 px, an
+modules (and the multi-process runtime, the SD-VAE, the oracles and the
+tools) import, a bundled PNG reads through the dataset at its own 256 px, an
 image saves through the driver's writer and the config loads; only a
 resize, which needs PIL, raises ``ImportError`` and says why."""
 import os
@@ -23,6 +24,14 @@ SCRIPT = textwrap.dedent("""
     import free_hunch_tpu_torch.metrics.quality
     import free_hunch_tpu_torch.parallel.mesh
     import free_hunch_tpu_torch.utils.stats
+    import free_hunch_tpu_torch.utils.profiling
+    import free_hunch_tpu_torch.analysis.gmm_guided
+    import free_hunch_tpu_torch.analysis.linear_gaussian
+    import free_hunch_tpu_torch.tools.count_flops
+    import free_hunch_tpu_torch.tools.dataset_tool
+    import free_hunch_tpu_torch.tools.frequency_analysis
+    import free_hunch_tpu_torch.tools.image_visualisation
+    import free_hunch_tpu_torch.tools.compute_fid_stats
     from free_hunch_tpu_torch.data.encoders import StabilityVAEEncoder
     from free_hunch_tpu_torch.models.vae import AutoencoderKL, VAEConfig
     from free_hunch_tpu_torch.config import load_config

@@ -42,7 +42,12 @@ def test_the_port_has_files_to_check():
     assert "free_hunch_tpu_torch/__init__.py" in PORT_FILES
     for module in ("operators/svd.py", "samplers/ddnm.py", "samplers/edm.py",
                    "models/precond.py", "parallel/dist.py", "parallel/mesh.py",
-                   "utils/stats.py", "models/vae.py", "data/encoders.py"):
+                   "utils/stats.py", "models/vae.py", "data/encoders.py",
+                   "analysis/gmm.py", "analysis/gmm_guided.py", "analysis/linear_gaussian.py",
+                   "ops/ortho.py", "utils/profiling.py", "utils/persistence.py",
+                   "tools/count_flops.py", "tools/dataset_tool.py",
+                   "tools/frequency_analysis.py", "tools/image_visualisation.py",
+                   "tools/compute_fid_stats.py", "tools/convert_lpips_weights.py"):
         assert f"free_hunch_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 

@@ -15,7 +15,7 @@ from free_hunch_tpu_torch.models.convert import name_map
 from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond as TPrecond
 from free_hunch_tpu_torch.models.unet import GroupNorm32, UNetConfig, UNetModel, create_model
 
-from tests._torch_parity import RES, tiny_cfg_kwargs, tiny_pair
+from tests._torch_parity import RES, one_thread, tiny_cfg_kwargs, tiny_pair  # noqa: F401
 
 F32 = np.float32
 SETUP_256 = "models/256x256_diffusion_uncond_setup.txt"

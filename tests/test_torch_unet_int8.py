@@ -26,7 +26,7 @@ from free_hunch_tpu_torch.models.precond import IDDPMLinearPrecond as TPrecond
 from free_hunch_tpu_torch.models.precond import _select_qscales
 from free_hunch_tpu_torch.ops.quant import QuantConv, QuantDense, _QuantSite
 
-from tests._torch_parity import RES, quant_pair
+from tests._torch_parity import RES, one_thread, quant_pair  # noqa: F401
 from tests.test_torch_freehunch import _mechs, prior_dir  # noqa: F401
 
 F32 = np.float32
