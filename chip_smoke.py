@@ -15,6 +15,7 @@
     python3 chip_smoke.py --vae                # phase 6 alone
     python3 chip_smoke.py --model-axis         # phase 7 alone
     python3 chip_smoke.py --oracle             # phase 8 alone
+    python3 chip_smoke.py --paper              # phase 9 alone
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -201,6 +202,30 @@ Phases, in order; any failure raises and exits non-zero:
    Heun steps traced by ``utils/profiling.py::trace`` into
    ``chiprun_out/oracle_trace/``; and the FLOP count of the 256 px bf16
    forward at batch 8 (``tools/count_flops.py``).
+9. the paper's commands (``tools/paper_configs.py``, the counterpart of
+   ``scripts/run_paper_configs.sh``) through ``generate_conditional.cmdline``
+   at full width: one batch of ``PAPER_IMAGES`` (8) bundled 256 px images,
+   ``PAPER_STEPS`` (3) Heun steps, seeded random weights, bf16 torso with
+   remat, no FID. First the witness: 5a's 32 px Evaluator, card against
+   CPU, with the options of Free Hunch on the motion blur (with 5a's flat
+   prior), the identity prior, the covariance gradient and the hybrid one
+   (``PAPER_REF_CASES``, ``PAPER_REF_STEPS`` (5) Heun steps): the samples
+   within ``PAPER_SAMPLE_ABS``, equal CG counts and covariance resets on
+   every guided call. Then the runs
+   (``PAPER_RUNS``): 9a Free Hunch on the motion blur (the paper's headline
+   configuration); 9b the sweep's identity half on the gaussian blur, SR
+   x4 and inpainting (its DCT half runs in phases 4, 4b and 5b); 9c the
+   covariance and hybrid guidance gradients; 9d DPS on inpainting, PiGDM on
+   the gaussian blur, DDNM+ SR x4; 9e ``--quant=int8_static`` on the
+   gaussian blur, the driver's own calibration included, its table cached
+   in the run's directory; 9f the FFHQ UNet (``models/ffhq_10m_setup.txt``)
+   with the identity prior on the gaussian blur, after K1 is held to its
+   plain version at every distinct norm call of its forward at batch 8
+   (``max_abs_err_ffhq``). Each run prints its walls, sampler seconds,
+   metrics, peak memory, K1's launches (and 9e's K3's) against the hooks
+   and against the count its mode fixes (``paper_expected``), CG
+   iterations per stage and covariance resets; each run's K1 launches join
+   K1's entry as ``launches_paper_<run>``, 9e's K3 launches K3's.
 
 The last two lines of standard output are the ``kernels`` JSON object and
 the ``device`` JSON object. Without a CUDA card the script prints no result
@@ -246,6 +271,7 @@ from free_hunch_tpu_torch.ops import gn_quant as gq
 from free_hunch_tpu_torch.ops import groupnorm as gn
 from free_hunch_tpu_torch.ops import quant as q
 from free_hunch_tpu_torch.samplers import ddnm, edm
+from free_hunch_tpu_torch.tools import paper_configs
 
 ROOT = Path(__file__).resolve().parent
 SETUP_256 = ROOT / "models" / "256x256_diffusion_uncond_setup.txt"
@@ -1141,8 +1167,10 @@ class CallRecorder:
 
     def __call__(self, denoise, x_t, y, sigma, state):
         x0, new = self.mech(denoise, x_t, y, sigma, state)
+        resets = getattr(new, "cov_resets", None)
         self.calls.append(dict(x_t=x_t, sigma=sigma, state=state, x0=x0.cpu().numpy(),
-                               niter=new.cg_niter))
+                               niter=new.cg_niter,
+                               resets=None if resets is None else int(resets.sum())))
         return x0, new
 
 
@@ -2136,6 +2164,27 @@ FULL_IMAGES, FULL_BATCH = 10, 8
 # CPU's largest |value|: TF32 convolutions (~1e-3 relative per value) break
 # the features' limits, though a distance averages such noise away
 DRIVER_METRIC_REL, DRIVER_SAMPLE_ABS, DRIVER_NET_REL = MECH_REF_CALL_REL, MECH_REF_LAST_ABS, 1e-4
+# phase 9's witness: 5a's run with the options of the paper's commands that
+# phase 9 drives at full width (``tools/paper_configs.py``), each on the
+# card against the CPU, at ``PAPER_REF_STEPS`` Heun steps. The motion blur
+# keeps 5a's flat prior: the DCT-diagonal prior truncated to 32 px makes
+# the final samples chaotic (a 1e-8 relative nudge of the denoiser moves
+# them by 1.5e-3 on the CPU, tests/_torch_paper_band.py), and at 3 steps
+# the last Heun corrector, at sigma 0.01, multiplies the motion blur's
+# unobserved directions by about 500 (a 1e-7 nudge: 5.3e-3). At 5
+# steps the guided calls sit at sigma 80, 19.7, 3.45, 0.34 and 0.01 (each
+# twice but the first), so the hybrid gradient's 2.0 takes the covariance
+# gradient at the first five calls and the vjp at the last four
+PAPER_REF_STEPS = 5
+PAPER_REF_CASES = {
+    "motion_blur": dict(operator_name="motion_blur", solver_type="customcuda",
+                        space_step_update_threshold=10.0,
+                        space_step_update_lower_threshold=1.0),
+    "identity": dict(image_base_covariance="identity"),
+    "covariance": dict(guidance_gradient="covariance"),
+    "hybrid": dict(guidance_gradient="hybrid", guidance_vjp_below=2.0),
+}
+PAPER_SAMPLE_ABS = 1e-3
 LPIPS_VGG = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
              (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512),
              (21, 512, 512), (24, 512, 512), (26, 512, 512), (28, 512, 512))
@@ -2190,14 +2239,15 @@ class DriverReference:
         self.lpips_pair = (a, np.clip(a + rng.normal(0, 0.2, a.shape), -1, 1).astype(np.float32))
         self.fid_images = rng.uniform(-1, 1, (2, 3, DRIVER_RES, DRIVER_RES)).astype(np.float32)
 
-    def run(self, dev: str, name: str, nudge: float = 0.0) -> dict:
+    def run(self, dev: str, name: str, nudge: float = 0.0, case: dict = None) -> dict:
         """One side: the Evaluator's journal records, totals, final float
-        samples per batch and CG counts per guided call, K1's launches, and
-        the metric networks' outputs. ``nudge`` multiplies every denoiser
-        output by (1 + nudge N(0, 1)), a stand-in for another device's
-        rounding."""
+        samples per batch, CG counts and covariance resets per guided call,
+        K1's launches, and the metric networks' outputs. ``nudge``
+        multiplies every denoiser output by (1 + nudge N(0, 1)), a stand-in
+        for another device's rounding; ``case`` overrides options (one of
+        ``PAPER_REF_CASES``)."""
         outdir = self.tmp / name
-        opts = fht_config.load_config(args=dict(
+        opts = fht_config.load_config(args=dict(dict(
             outdir=str(outdir), openai_setup_path=str(self.setup),
             openai_state_dict_path=str(self.tmp / "absent.pt"), allow_random_init=True,
             dataset_path=str(self.data), total_images=DRIVER_IMAGES,
@@ -2205,7 +2255,7 @@ class DriverReference:
             conditioning_mechanism="online_covariance",
             image_base_covariance="dct_diagonal_noinfo", operator_name="gaussian_blur",
             intensity=3.0, noise_sigma=0.1, dtype="float32", mesh_shape="data:1",
-            num_other_images_to_save=10))
+            num_other_images_to_save=10), **(case or {})))
         ev = teval.Evaluator(opts, device=dev)
         ev.model.load_state_dict(self.state)
         samples, recs = [], []
@@ -2247,16 +2297,19 @@ class DriverReference:
             taps = lp._vgg_taps((a - lp.shift) / lp.scale)
         feats = extract(torch.as_tensor(self.fid_images, device=dev))
         return dict(records=records, totals=totals, samples=samples,
-                    niter=[[c["niter"] for c in r.calls] for r in recs], launches=launches,
+                    niter=[[c["niter"] for c in r.calls] for r in recs],
+                    resets=[[c["resets"] for c in r.calls] for r in recs], launches=launches,
                     wall_s=wall, lpips=dist.cpu().numpy(), features=feats.cpu().numpy(),
                     **{f"lpips_tap{i}": t.cpu().numpy() for i, t in enumerate(taps)},
                     files=sorted(str(p.relative_to(outdir)) for p in outdir.rglob("*")
                                  if p.is_file()))
 
 
-def driver_reference_failures(cpu: dict, card: dict) -> tuple:
-    """(readings as error / limit, what breaks the limits) of phase 5a,
-    card against CPU."""
+def driver_reference_failures(cpu: dict, card: dict,
+                              sample_abs: float = DRIVER_SAMPLE_ABS) -> tuple:
+    """(readings as error / limit, what breaks the limits) of phase 5a (or
+    a case of phase 9's witness, with its ``sample_abs``), card against
+    CPU."""
     ratio, bad = {}, []
 
     def hold(key, err, lim):
@@ -2278,9 +2331,11 @@ def driver_reference_failures(cpu: dict, card: dict) -> tuple:
         if g.shape != c.shape or not np.isfinite(g).all():
             bad.append(f"batch {i} samples {g.shape} not finite or not {c.shape}")
         else:
-            hold(f"batch {i} samples", np.abs(g - c).max(), DRIVER_SAMPLE_ABS)
+            hold(f"batch {i} samples", np.abs(g - c).max(), sample_abs)
     if card["niter"] != cpu["niter"]:
         bad.append(f"CG niter card {card['niter']} cpu {cpu['niter']}")
+    if card["resets"] != cpu["resets"]:
+        bad.append(f"covariance resets card {card['resets']} cpu {cpu['resets']}")
     for k in ["lpips", "features"] + [k for k in cpu if k.startswith("lpips_tap")]:
         hold(k, np.abs(card[k] - cpu[k]).max(), DRIVER_NET_REL * np.abs(cpu[k]).max())
     if card["files"] != cpu["files"]:
@@ -2309,38 +2364,67 @@ def driver_reference_phase(seed: int, card: str = "cuda"):
         raise AssertionError(f"driver reference: card and CPU disagree: {bad}")
 
 
-def hooked_driver(run):
+def hooked_driver(run, record: dict = None):
     """Run ``run()`` (a ``generate_conditional.cmdline`` call) with the
     GroupNorm32 calls of the model the driver loads counted by hooks and
     the time inside ``sample_loop`` / ``ddnm_sample`` read on the host
     clock, the card synchronised. Returns (result, K1 launches, hooks'
-    count, [(sampler seconds, batch)], wall s, peak GiB)."""
+    count, [(sampler seconds, batch)], wall s, peak GiB). With ``record``
+    (a dict, filled in): the model (``model``), its int8 module calls
+    (``int8``, recomputes included), ``sample_loop``'s diagnostics per
+    batch (``diags``) and schedule (``xs``), and, where the driver
+    calibrates a static int8 torso, that calibration's seconds and kernel
+    launches (``calibration``), which the launches returned include."""
     calls = Counter()
     samplings = []
+    handles = []
     load, loop, ddnm_loop = teval.load_model, teval.sample_loop, teval_ddnm.ddnm_sample
+    calibrate = teval.Evaluator._calibrate_static_qscales
 
     def count(mod, args):
         calls["gn"] += 1
+
+    def count_int8(mod, args):
+        calls["int8"] += 1
 
     def hooked_load(*a, **k):
         model, args = load(*a, **k)
         for m in model.modules():
             if isinstance(m, GroupNorm32):
-                m.register_forward_pre_hook(count)
+                handles.append(m.register_forward_pre_hook(count))
+            elif record is not None and isinstance(m, (q.QuantConv, q.QuantDense)):
+                handles.append(m.register_forward_pre_hook(count_int8))
+        if record is not None:
+            record["model"] = model
         return model, args
 
-    def timed(fn):
+    def timed(fn, diagnose=False):
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
+            if diagnose:
+                out = fn(*a, collect_diagnostics=True, **k)
+                record.setdefault("diags", []).append(out[2])
+                record["xs"], out = a[4], out[:2]
+            else:
+                out = fn(*a, **k)
             torch.cuda.synchronize()
             samplings.append((time.perf_counter() - t0, int(a[2].shape[0])))
             return out
         return wrapper
 
-    teval.load_model, teval.sample_loop = hooked_load, timed(loop)
+    def calibrated(ev):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), counts()
+        calibrate(ev)
+        torch.cuda.synchronize()
+        record["calibration"] = dict(seconds=time.perf_counter() - t0,
+                                     **{k: v - before[k] for k, v in counts().items()})
+
+    teval.load_model, teval.sample_loop = hooked_load, timed(loop, record is not None)
     teval_ddnm.ddnm_sample = timed(ddnm_loop)
+    if record is not None:
+        teval.Evaluator._calibrate_static_qscales = calibrated
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2353,6 +2437,11 @@ def hooked_driver(run):
     finally:
         teval.load_model, teval.sample_loop = load, loop
         teval_ddnm.ddnm_sample = ddnm_loop
+        teval.Evaluator._calibrate_static_qscales = calibrate
+        for h in handles:
+            h.remove()
+    if record is not None:
+        record["int8"] = calls["int8"]
     return (result, launches, calls["gn"], samplings, wall,
             torch.cuda.max_memory_allocated() / 2**30)
 
@@ -2381,13 +2470,18 @@ def check_artifacts(outdir: Path, label: str, n: int, batches: int, fid: bool):
     return results, shape
 
 
-def driver_args(seed: int) -> list:
+def driver_args(seed: int, images: int = FULL_IMAGES, setup: Path = None,
+                ckpt: Path = None) -> list:
     """The command-line options every full-width driver run shares: the
-    ten bundled 256 px images (``data/imagenet``, whose ``dct_variance.pt``
-    is the Free Hunch prior), seeded random weights, bf16 torso with remat."""
+    bundled 256 px images (``data/imagenet``, whose ``dct_variance.pt``
+    is the Free Hunch prior; the first ``images`` of the ten), seeded random
+    weights (``setup`` and ``ckpt``: the setup file and the absent
+    checkpoint's path, by default the 256 px ImageNet UNet's), bf16 torso
+    with remat, batch ``FULL_BATCH``."""
     data = ROOT / "data" / "imagenet"
-    return [f"--openai_setup_path={SETUP_256}", f"--openai_state_dict_path={CKPT_256}",
-            "--allow_random_init=true", f"--dataset_path={data}", f"--total_images={FULL_IMAGES}",
+    return [f"--openai_setup_path={setup or SETUP_256}",
+            f"--openai_state_dict_path={ckpt or CKPT_256}",
+            "--allow_random_init=true", f"--dataset_path={data}", f"--total_images={images}",
             f"--batch_size={FULL_BATCH}", "--seeds=0", "--dtype=bfloat16", "--remat=true",
             "--noise_sigma=0.1", "--num_other_images_to_save=10", "--mesh_shape=data:1",
             f"--seed={seed}"]
@@ -4510,6 +4604,200 @@ def oracle_phase(seed: int, smi: str, dev: str = "cuda") -> dict:
     return dict(stats=stats, gmm=g, flops=flops["flops_per_forward"])
 
 
+# -- phase 9: the paper's commands through the driver ---------------------------
+
+PAPER_STEPS = 3     # Heun steps a run: 5 guided calls (DDNM+ doubles them to 6 steps)
+PAPER_IMAGES = 8    # one batch of 8 bundled images a run
+SETUP_FFHQ = ROOT / "models" / "ffhq_10m_setup.txt"
+# (label, entry of tools/paper_configs.py, options added to it); 9e and 9f
+# take the gaussian-blur Free Hunch entries to the static int8 torso (its
+# table cached in the run's directory) and to the FFHQ UNet
+PAPER_RUNS = (("9a", "freehunch_motion", ()),
+              *(("9b", f"sweep_{o}_identity", ()) for o in paper_configs.SWEEP_OPERATORS),
+              ("9c", "freehunch_blur_covariance", ()),
+              ("9c", "freehunch_blur_hybrid", ()),
+              ("9d", "dps_inpainting", ()),
+              ("9d", "pigdm_blur", ()),
+              ("9d", "ddnm_sr", ()),
+              ("9e", "sweep_gaussian_blur_dct_diagonal", ("--quant=int8_static",)),
+              ("9f", "sweep_gaussian_blur_identity", ("ffhq",)))
+
+
+def paper_reference_phase(seed: int, card: str = "cuda") -> None:
+    """Phase 9's witness: 5a's 32 px Evaluator with each case of
+    ``PAPER_REF_CASES`` at ``PAPER_REF_STEPS`` Heun steps on the card
+    against the CPU, each held to 5a's limits but ``PAPER_SAMPLE_ABS`` on
+    the samples, equal CG counts and equal covariance resets on every
+    guided call; anything outside them, or no K1 launch on the card,
+    raises."""
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = DriverReference(seed, Path(tmp))
+        for case, over in PAPER_REF_CASES.items():
+            over = dict(over, num_steps=PAPER_REF_STEPS)
+            cpu = ref.run("cpu", f"cpu_{case}", case=over)
+            gpu = ref.run(card, f"card_{case}", case=over)
+            ratio, fails = driver_reference_failures(cpu, gpu, PAPER_SAMPLE_ABS)
+            if cpu["launches"] != 0 or gpu["launches"] == 0:
+                fails.append(f"K1 launches cpu {cpu['launches']} card {gpu['launches']}")
+            say(f"paper reference 32 px, {case} ({over}), card vs CPU: error / limit of "
+                f"the samples {max(v for k, v in ratio.items() if k.endswith('samples')):.5f}"
+                f", of all {max(ratio.values()):.5f}; CG niter {gpu['niter']}; covariance "
+                f"resets {gpu['resets'][0][-1]}, {gpu['resets'][1][-1]}; card K1 launches "
+                f"{gpu['launches']}; wall card {gpu['wall_s']:.2f} s, CPU {cpu['wall_s']:.2f} s"
+                + (f"; FAILS: {fails}" if fails else ""))
+            bad += [f"{case}: {b}" for b in fails]
+    if bad:
+        raise AssertionError(f"paper reference: card and CPU disagree: {bad}")
+
+
+def guided_sigmas(xs: dict) -> list:
+    """The sigma of every guided call of a ``sample_loop`` schedule, in
+    order: the step's sigma_hat, then its sigma_prime on a Heun step."""
+    out = []
+    for i, heun in enumerate(np.asarray(xs["use_heun"], bool)):
+        out.append(float(np.float32(xs["sigma_hat"][i])))
+        if heun:
+            out.append(float(np.float32(xs["sigma_prime"][i])))
+    return out
+
+
+def paper_expected(model, config: dict, xs: dict) -> dict:
+    """What the mode fixes of a run of one batch: its UNet forwards, the
+    guided calls that pull back through the UNet, and K1's launches (a
+    GroupNorm call per forward and, under remat, a recompute of each
+    ResBlock's norms per pullback). DDNM+ makes one forward a step and no
+    pullback; the covariance gradient none; the hybrid one where sigma is
+    below ``guidance_vjp_below``; every other mechanism one a call."""
+    norms = sum(isinstance(m, GroupNorm32) for m in model.modules())
+    recomputes = sum(isinstance(m, GroupNorm32) for r in model.modules()
+                     if isinstance(r, ResBlock) and not r.fused
+                     for m in r.modules()) if model.cfg.remat else 0
+    mech = config["conditioning_mechanism"]
+    if mech == "ddnm":
+        forwards, pullbacks = int(config["num_steps"]), 0
+    else:
+        sigmas = guided_sigmas(xs)
+        forwards = len(sigmas)
+        mode = config.get("guidance_gradient", "vjp") if mech == "online_covariance" \
+            else "vjp"
+        below = float(np.float32(config.get("guidance_vjp_below", 0.0)))
+        pullbacks = {"vjp": forwards, "covariance": 0,
+                     "hybrid": sum(s < below for s in sigmas)}[mode]
+    return dict(forwards=forwards, pullbacks=pullbacks, norms=norms, recomputes=recomputes,
+                k1=forwards * norms + pullbacks * recomputes)
+
+
+def paper_run(label: str, name: str, extra: tuple, seed: int, tmp: Path, smi: str,
+              dev: str = "cuda") -> dict:
+    """One of phase 9's runs: the entry's command through
+    ``generate_conditional.cmdline`` at ``PAPER_STEPS`` Heun steps on one
+    batch of ``PAPER_IMAGES`` bundled images; prints its line and holds it
+    to its checks. Returns its launches."""
+    # 9e and 9f reuse an entry's name: their runs go to a directory of their own
+    out = tmp / label if extra else tmp
+    setup, ckpt = SETUP_256, out / "models" / CKPT_256.name
+    if extra == ("ffhq",):
+        setup, ckpt, extra = SETUP_FFHQ, out / "models" / "ffhq_10m.pt", ()
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    outdir = out / name
+    argv = driver_args(seed, PAPER_IMAGES, setup, ckpt) + paper_configs.command(
+        name, str(out), PAPER_STEPS, PAPER_IMAGES, str(ROOT / "data" / "imagenet"),
+        FULL_BATCH, extra)
+    record = {}
+    res, launches, hooks, samp, wall, peak = hooked_driver(lambda: cmdline(argv, dev), record)
+    results, shape = check_artifacts(outdir, f"{label} {name}", PAPER_IMAGES, 1, fid=False)
+    config = json.loads((outdir / "config.json").read_text())
+    model = record.pop("model")
+    want = paper_expected(model, config, record.get("xs"))
+    quant = config.get("quant", "none")
+    n_int8 = sum(isinstance(m, (q.QuantConv, q.QuantDense)) for m in model.modules())
+    del model
+    cal = record.get("calibration", dict(seconds=0.0, groupnorm_silu=0, int8_conv=0,
+                                         gn_silu_quant=0))
+    k1 = launches - cal["groupnorm_silu"]
+    k3 = q.launches - cal["int8_conv"]
+    k3_want = record["int8"] + want["pullbacks"] * n_int8
+    sampling = sum(s for s, _ in samp)
+    torso = (f"{config['dtype']} torso" + (f", {quant}" if quant != "none" else "")
+             + f" with remat ({Path(config['openai_setup_path']).name}"
+             + (", whose use_fp16 False the driver's --dtype overrides"
+                if setup == SETUP_FFHQ else "") + ")")
+    line = (f"{label} {name}: {config['conditioning_mechanism']} on {config['operator_name']}"
+            + (f", {config['image_base_covariance']} prior, {config['guidance_gradient']} "
+               f"gradient" if config["conditioning_mechanism"] == "online_covariance" else "")
+            + f", {config['num_steps']} steps, {PAPER_IMAGES} {shape[0]} px images at batch "
+            f"{FULL_BATCH}, {torso}, on {smi}: wall {wall:.3f} s whole entry, "
+            f"{results['time_taken']:.3f} s loop, sampler {sampling:.3f} s; PSNR "
+            f"{results['psnr']:.4f}, SSIM {results['ssim']:.4f}, LPIPS {results['lpips']:.4f} "
+            f"(proxy); peak device memory {peak:.3f} GiB; K1 launches {k1} (hooks {hooks}, "
+            f"mode {want['forwards']} x {want['norms']} + {want['pullbacks']} x "
+            f"{want['recomputes']} = {want['k1']})")
+    if quant == "int8_static":
+        line += (f"; K3 launches {k3} (int8 calls {record['int8']} + {want['pullbacks']} "
+                 f"pullbacks x {n_int8} = {k3_want}); calibration {cal['seconds']:.3f} s, "
+                 f"its launches K1 {cal['groupnorm_silu']} K3 {cal['int8_conv']}")
+    for diag in record.get("diags", []):
+        line += (f"; CG iterations per stage {diag['cg_niter'].numpy().tolist()}, host syncs "
+                 f"{diag['host_syncs']}, cov_resets {diag['cov_resets']}")
+    say(line)
+    bad = []
+    if not 0 < k1 == hooks == want["k1"]:
+        bad.append(f"K1 launches {k1}, hooks {hooks}, the mode's {want['k1']}")
+    if quant == "int8_static" and not 0 < k3 == k3_want:
+        bad.append(f"K3 launches {k3}, int8 calls + pullbacks {k3_want}")
+    if quant == "int8_static" and not cal["seconds"] > 0:
+        bad.append("the static torso was not calibrated")
+    if bad:
+        raise AssertionError(f"{label} {name}: {bad}")
+    return dict(k1=k1, k3=k3 if quant == "int8_static" else None)
+
+
+def ffhq_gn_check(seed: int, batch: int = PAPER_IMAGES) -> float:
+    """K1 against its plain version at every distinct GroupNorm call of the
+    FFHQ UNet's bf16 forward at ``batch`` (128 channels: 4 a group, two
+    groups a 16-byte vector), checked and not timed; returns the largest
+    error (each within two bf16 ulps, or ``check_gn`` raises)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        model, args = loading.load_model(str(Path(tmp) / "ffhq_10m.pt"), str(SETUP_FFHQ),
+                                         dtype=torch.bfloat16, init_random_if_missing=True,
+                                         rng_seed=seed, remat=True)
+    shapes = gn_shapes_of_forward(model, batch, args["image_size"], "cuda")
+    del model
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err = 0.0
+    say(f"  K1 at the FFHQ UNet's forward, batch {batch}, per distinct shape (calls):")
+    for (shape, dtype, silu), calls in sorted(shapes.items(), key=lambda kv: -np.prod(kv[0][0])):
+        r = check_gn(shape, dtype, silu, gen, measure=False)
+        err = max(err, r["max_abs_err"])
+        say(f"    {calls:3d} x {r['shape']} {r['dtype']} silu={silu}: err "
+            f"{r['max_abs_err']:.3g} ({r['tol']})")
+    return err
+
+
+def paper_phase(seed: int, smi: str, dev: str = "cuda") -> tuple:
+    """Phase 9: the witness at 32 px, then each of ``PAPER_RUNS`` at full
+    width. Returns (K1's entries, K3's entries) for the ``kernels`` line."""
+    k1, k3 = {}, {}
+    with timed_phase("9 paper commands, 32 px reference"):
+        paper_reference_phase(seed, dev)
+    say("9b: the dct_diagonal half of the sweep (5) runs in phase 4 (gaussian blur), 4b "
+        "(SR x4, inpainting) and 5b (the driver, gaussian blur); 9b runs the identity half")
+    with timed_phase("9 paper commands"):
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, name, extra in PAPER_RUNS:
+                key = {"9e": "int8_static", "9f": "ffhq"}.get(label, name)
+                if label == "9f":
+                    k1["max_abs_err_ffhq"] = ffhq_gn_check(seed)
+                got = paper_run(label, name, extra, seed, Path(tmp), smi, dev)
+                k1[f"launches_paper_{key}"] = got["k1"]
+                if got["k3"] is not None:
+                    k3[f"launches_paper_{key}"] = got["k3"]
+                torch.cuda.empty_cache()
+    return k1, k3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -4544,6 +4832,9 @@ def main(argv=None) -> int:
     ap.add_argument("--oracle", action="store_true", help="phase 8 alone: the linear-Gaussian "
                     "and GMM exact-posterior oracles, the traced run and the FLOP count; no "
                     "result lines")
+    ap.add_argument("--paper", action="store_true", help="phase 9 alone: the 32 px witness "
+                    "of the paper's commands, then each command at full width through "
+                    "generate_conditional; no result lines")
     ap.add_argument("--model-axis-rank", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--model-axis-part", default="7a", choices=("7a", "7c", "7d"),
                     help=argparse.SUPPRESS)
@@ -4593,6 +4884,11 @@ def main(argv=None) -> int:
         oracle_phase(args.seed, smi)
         say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")
         say(f"chip_smoke --oracle wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args.paper:
+        paper_phase(args.seed, smi)
+        say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")
+        say(f"chip_smoke --paper wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args.model_axis:
         model_axis_phase(args.seed, smi, control=True)
@@ -4683,6 +4979,9 @@ def main(argv=None) -> int:
     k2s_entry, k3h_entry, k1_readings = model_axis_remainders(args.seed, smi)
     gns_entry.update(k1_readings)
     oracle_phase(args.seed, smi)
+    k1_paper, k3_paper = paper_phase(args.seed, smi)
+    gn_entry.update(k1_paper)
+    k3_entry.update(k3_paper)
     say(f"groupnorm_silu launches: {launches['groupnorm_silu']} on the bf16 slice, "
         f"{qlaunches['groupnorm_silu']} on the int8 slice")
     for name, n in (("groupnorm_silu", launches["groupnorm_silu"]),
@@ -4701,7 +5000,10 @@ def main(argv=None) -> int:
                       if k.startswith(("launches_driver", "launches_int8_axis",
                                        "launches_ragged"))),
                     ("gn_silu_quant_sharded", k2s_entry["launches"]),
-                    ("int8_conv_halo", k3h_entry["launches"])):
+                    ("int8_conv_halo", k3h_entry["launches"]),
+                    *(("groupnorm_silu", v) for k, v in k1_paper.items()
+                      if k.startswith("launches")),
+                    *(("int8_conv", v) for v in k3_paper.values())):
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its main path")
     say(f"phase wall times (s): {json.dumps(PHASE_WALLS)}")

@@ -171,6 +171,19 @@ K2_SHAPES = [s for r, s, _ in FORWARD_NORMS if r == "k2"]
 K1_SHAPES = sorted({(s, z) for _, s, z in FORWARD_NORMS}, key=lambda k: (-k[0][1], -k[0][3]))
 
 
+def _ffhq_shapes():
+    """(NHWC shape, itemsize) of each distinct GroupNorm call of the FFHQ
+    UNet's forward (``models/ffhq_10m_setup.txt``: 128 channels, one res
+    block, attention at 16 px) at batch 8: at 128 channels a group has 4, so
+    a 16-byte bf16 vector of K1 spans two groups."""
+    from test_torch_gn_plan import norm_calls
+    return sorted({(s, z) for _, s, z in norm_calls(mc=128, blocks=1, attn_res=(16,))},
+                  key=lambda k: (-k[0][1], -k[0][3]))
+
+
+FFHQ_K1_SHAPES = _ffhq_shapes()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,itemsize", K1_SHAPES,
                          ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
@@ -195,6 +208,16 @@ def test_kernel_matches_plain_at_every_forward_shape(shape, itemsize):
         else:
             ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
             assert float((y.float() - want.float()).abs().max()) <= 2 * float(ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,itemsize", FFHQ_K1_SHAPES,
+                         ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
+                              for s, z in FFHQ_K1_SHAPES])
+def test_kernel_matches_plain_at_every_ffhq_forward_shape(shape, itemsize):
+    """K1 at every distinct shape of the FFHQ UNet's forward at batch 8,
+    with the same limits."""
+    test_kernel_matches_plain_at_every_forward_shape(shape, itemsize)
 
 
 def _full_pass_agrees(x, g, b):

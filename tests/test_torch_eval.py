@@ -256,3 +256,24 @@ def test_free_hunch_gaussian_blur_matches_jax(tmp_path, setup32):
         operator_name="gaussian_blur", image_base_covariance="dct_diagonal_noinfo",
         num_steps=3, noise_sigma=0.1, cov_capacity="auto")
     _check_pair(tmp_path, jres, tres, jx, tx, [1e-4 * np.abs(f).max() for f in jfirst])
+
+
+def _entry_options(name: str) -> dict:
+    """The options of one command of ``tools/paper_configs.py``, typed by
+    the port's config schema."""
+    from free_hunch_tpu_torch.tools.paper_configs import COMMANDS
+    keys = [a[2:].split("=", 1)[0] for a in COMMANDS[name]]
+    opts = tcfg.load_config(argv=["--outdir=unused"] + COMMANDS[name])
+    return {k: opts[k] for k in keys}
+
+
+@pytest.mark.slow
+def test_free_hunch_motion_blur_matches_jax(tmp_path, setup32):
+    """The paper's headline command (``freehunch_motion``: the motion blur,
+    the DCT-diagonal prior, the tailored CG, the space-update window) through
+    both drivers, with the gaussian-blur case's limits."""
+    jres, tres, jx, tx, jfirst = _drive_pair(
+        tmp_path, setup32, **dict(_entry_options("freehunch_motion"),
+                                  image_base_covariance="dct_diagonal_noinfo"), num_steps=3,
+        noise_sigma=0.1, cov_capacity="auto")
+    _check_pair(tmp_path, jres, tres, jx, tx, [1e-4 * np.abs(f).max() for f in jfirst])

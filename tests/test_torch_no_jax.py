@@ -47,7 +47,8 @@ def test_the_port_has_files_to_check():
                    "ops/ortho.py", "utils/profiling.py", "utils/persistence.py",
                    "tools/count_flops.py", "tools/dataset_tool.py",
                    "tools/frequency_analysis.py", "tools/image_visualisation.py",
-                   "tools/compute_fid_stats.py", "tools/convert_lpips_weights.py"):
+                   "tools/compute_fid_stats.py", "tools/convert_lpips_weights.py",
+                   "tools/paper_configs.py"):
         assert f"free_hunch_tpu_torch/{module}" in PORT_FILES
     assert len(PORT_FILES) > 10
 
