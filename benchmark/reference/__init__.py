@@ -1,0 +1,9 @@
+"""The benchmark's plain reference: PyTorch in float32 with TF32 off.
+
+It imports nothing of the program under test (``free_hunch_tpu_torch``)
+and nothing of the JAX package. It works everything out again from the
+inputs the benchmark makes: the seeded weights, the images, the noise and
+the measurement. ``unet`` is the ADM denoiser, ``freehunch`` the guided
+call's stages (covariance update, CG, guidance gradient) and the Heun
+update.
+"""
