@@ -15,6 +15,12 @@ computes in f32 (variances from sigma) are computed in f32 here too.
 
 Guidance gradients are ``torch.autograd.grad`` of x0_mean with respect to
 x_t against a cotangent, through the UNet with frozen parameters.
+
+While a profiler records (``utils/profiling.py``), each call is a
+``mech.call`` span carrying the state's step and sigma, and Free Hunch's
+stages are device-timed spans: ``fh.denoise`` (0), ``fh.cov_update``
+(1-3), ``fh.solve`` (4), ``fh.guide`` (5); ``x_changed`` is a
+``host.read``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from free_hunch_tpu_torch.ops.dct import dct_2d, idct_2d
 from free_hunch_tpu_torch.ops.lowrank import LowRank
 from free_hunch_tpu_torch.parallel import collectives as coll
 from free_hunch_tpu_torch.parallel import sharded_cov
+from free_hunch_tpu_torch.utils import profiling
 
 _F32 = np.float32
 
@@ -121,9 +128,11 @@ class ConditioningMechanism:
                           cg_optfrac=torch.ones((), device=dev), cg_host_syncs=0)
 
     def __call__(self, denoise: Callable, x_t, y, sigma, state):
-        x0_new, state = self.x0_mean_update(denoise, x_t, y, float(_F32(sigma)), state)
-        if self.clip_x0_mean:
-            x0_new = torch.clamp(x0_new, -1.0, 1.0)
+        sigma = float(_F32(sigma))
+        with profiling.span("mech.call", args={"step": state.step, "sigma": sigma}):
+            x0_new, state = self.x0_mean_update(denoise, x_t, y, sigma, state)
+            if self.clip_x0_mean:
+                x0_new = torch.clamp(x0_new, -1.0, 1.0)
         return x0_new, state
 
     def _bump(self, state):
@@ -411,141 +420,149 @@ class FreeHunch(ConditioningMechanism):
     def x0_mean_update(self, denoise, x_t, y, sigma, state: FreeHunchState):
         img_shape = x_t.shape[1:]
         sigma = float(np.float32(sigma))
-        # the denoiser and its vjp run in f32; the covariance algebra and the
-        # CG solve in the algebra dtype, which an f32 sigma converts to exactly
-        if self.guidance_gradient == "covariance":
-            with torch.no_grad():
-                x0, _ = denoise(x_t.float(), sigma)
-            pullback = None
-        else:
-            x0, _, pullback = _denoise_with_vjp(denoise, x_t.float(), sigma)
-        adt = self._adt
-        x_t, y, x0_a = x_t.to(adt), y.to(adt), x0.to(adt)
-
-        has_prev = state.step > 0
-        sigma_changed = has_prev and sigma != state.prev_sigma
-        reduce = self._reduce()
-
-        def x_changed():
-            return has_prev and not self._decide(torch.all(torch.abs(x_t - state.prev_x) < 1e-12))
-
-        cov = state.cov
-        resets = (torch.zeros(x_t.shape[:1], dtype=torch.int64, device=x_t.device)
-                  if state.cov_resets is None else state.cov_resets.clone())
-        if self.do_space_updates:
-            prev_x_b = self._to_basis(state.prev_x)
-            prev_mean_b = self._to_basis(state.prev_mean)
-            # (1) time update + analytic transport of the previous mean
-            if sigma_changed:
-                transport = (cov_mod.transport_score_two_inverse
-                             if self.transport_formula == "two_inverse"
-                             else cov_mod.transport_score)
-                score_prev = (prev_mean_b - prev_x_b) / state.prev_sigma**2
-                cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
-                prev_mean_b, _ = transport(state.cov, cov, state.prev_sigma, sigma,
-                                           prev_x_b, score_prev, reduce)
-                if self.transport_mean_bound is not None:
-                    b = float(self.transport_mean_bound)
-                    prev_mean_b = self._to_basis(torch.clamp(
-                        self._from_basis(prev_mean_b, img_shape), -b, b))
-            # (2) optional extra network evaluation at (prev_x, sigma)
-            in_window = (self.space_step_update_lower_threshold < sigma
-                         < self.space_step_update_threshold)
-            changed = (x_changed() if in_window or not self.use_analytical_score_time_update
-                       else False)
-            if not self.use_analytical_score_time_update and changed:
+        dev = x_t.device
+        # (0) the denoiser, with its autograd record where a vjp follows. The
+        # denoiser and its vjp run in f32; the covariance algebra and the CG
+        # solve in the algebra dtype, which an f32 sigma converts to exactly
+        with profiling.span("fh.denoise", device=dev):
+            if self.guidance_gradient == "covariance":
                 with torch.no_grad():
-                    m, _ = denoise(state.prev_x.float(), sigma)
-                prev_mean_b = self._to_basis(m.to(adt))
-            # (3) gated BFGS space update
-            if changed and in_window:
-                params = cov_mod.CovParams(
-                    project_to_diagonal=self.project_to_diagonal,
-                    curvature_guard=self.bfgs_curvature_guard,
-                    secant_novelty_min=self.bfgs_secant_novelty_min)
-                cov = cov_mod.space_update(cov, sigma, prev_x_b, self._to_basis(x_t),
-                                           prev_mean_b, self._to_basis(x0_a), params, reduce,
-                                           resets)
-        elif sigma_changed:
-            cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
+                    x0, _ = denoise(x_t.float(), sigma)
+                pullback = None
+            else:
+                x0, _, pullback = _denoise_with_vjp(denoise, x_t.float(), sigma)
+        adt = self._adt
+        # (1)-(3) the covariance update
+        with profiling.span("fh.cov_update", device=dev):
+            x_t, y, x0_a = x_t.to(adt), y.to(adt), x0.to(adt)
 
-        # (4) solve (A Sigma_0 A^T + sigma_s^2 I) u = y - A x0;  mat = A^T u
-        dct_basis = self.image_base_covariance.startswith("dct")
-        # the mean eigenvalue of Sigma_0 per sample: the scalar preconditioner
-        # of the solvers that take no spectrum (inpainting, identity basis)
-        gram = reduce(torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)))
-        lr_trace = torch.sum(cov.M * gram, dim=(-2, -1))
-        cov_vbar = (reduce(torch.sum(cov.diag, dim=-1)) + lr_trace) / x_t[0].numel()
-        recycle = self.cg_warm_start == "prev"
-        recycle_kw = (dict(u_init=state.prev_u, u_init_valid=state.step > 0,
-                           return_u=True) if recycle else {})
-        analytic_case = self.use_analytic_var_at_end and sigma < self.mle_sigma_thres
-        if analytic_case:
-            # below the threshold the solve takes the recon_mse variance on
-            # the scipy budget, with the mechanism's CG knobs
-            var = _analytic_var(self.dataset, sigma)
-            solved = choose_solver(self.forward_operator, y, x0_a,
-                                   theta0_var=torch.full_like(x0_a, var), method="scipy",
-                                   max_rtol=self.max_rtol, sigma_t=sigma,
-                                   use_rtol_func=self.use_rtol_func, maxiter=self.cg_maxiter,
-                                   return_info=True, precondition=self.cg_precondition,
-                                   stall_iters=self.cg_stall_iters,
-                                   rtol_floor=self.rtol_floor,
-                                   track_best=self.cg_track_best, decide=self._decide,
-                                   **recycle_kw)
-        else:
-            solved = choose_solver(self.forward_operator, y, x0_a,
-                                   cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
-                                   method=self.solver_type, max_rtol=self.max_rtol,
-                                   sigma_t=sigma, use_rtol_func=self.use_rtol_func,
-                                   maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
-                                   return_info=True, precondition=self.cg_precondition,
-                                   stall_iters=self.cg_stall_iters,
-                                   cov_dct_diag=self._whole(lowrank.diag_of(cov),
-                                                            x0_a[0].numel())
-                                   if dct_basis else None,
-                                   rtol_floor=self.rtol_floor,
-                                   track_best=self.cg_track_best,
-                                   cg_coords=self.cg_coords, decide=self._decide, **recycle_kw)
-        if recycle:
-            mat, cg_info, u_next = solved
-        else:
-            (mat, cg_info), u_next = solved, state.prev_u
+            has_prev = state.step > 0
+            sigma_changed = has_prev and sigma != state.prev_sigma
+            reduce = self._reduce()
 
-        # (5) guidance gradient with the large-update fallback; where mat was
-        # solved against var * I, every non-vjp gradient is var * mat / sigma^2
-        if analytic_case:
-            fallback = (var * mat / sigma**2).float()
-        else:
-            fallback = (self.cov_matvec_pixel(cov, mat) / sigma**2).float()
+            def x_changed():
+                return has_prev and not profiling.host_read(
+                    torch.all(torch.abs(x_t - state.prev_x) < 1e-12), self._decide)
 
-        def guarded(g):
+            cov = state.cov
+            resets = (torch.zeros(x_t.shape[:1], dtype=torch.int64, device=x_t.device)
+                      if state.cov_resets is None else state.cov_resets.clone())
+            if self.do_space_updates:
+                prev_x_b = self._to_basis(state.prev_x)
+                prev_mean_b = self._to_basis(state.prev_mean)
+                # (1) time update + analytic transport of the previous mean
+                if sigma_changed:
+                    transport = (cov_mod.transport_score_two_inverse
+                                 if self.transport_formula == "two_inverse"
+                                 else cov_mod.transport_score)
+                    score_prev = (prev_mean_b - prev_x_b) / state.prev_sigma**2
+                    cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
+                    prev_mean_b, _ = transport(state.cov, cov, state.prev_sigma, sigma,
+                                               prev_x_b, score_prev, reduce)
+                    if self.transport_mean_bound is not None:
+                        b = float(self.transport_mean_bound)
+                        prev_mean_b = self._to_basis(torch.clamp(
+                            self._from_basis(prev_mean_b, img_shape), -b, b))
+                # (2) optional extra network evaluation at (prev_x, sigma)
+                in_window = (self.space_step_update_lower_threshold < sigma
+                             < self.space_step_update_threshold)
+                changed = (x_changed() if in_window or not self.use_analytical_score_time_update
+                           else False)
+                if not self.use_analytical_score_time_update and changed:
+                    with torch.no_grad():
+                        m, _ = denoise(state.prev_x.float(), sigma)
+                    prev_mean_b = self._to_basis(m.to(adt))
+                # (3) gated BFGS space update
+                if changed and in_window:
+                    params = cov_mod.CovParams(
+                        project_to_diagonal=self.project_to_diagonal,
+                        curvature_guard=self.bfgs_curvature_guard,
+                        secant_novelty_min=self.bfgs_secant_novelty_min)
+                    cov = cov_mod.space_update(cov, sigma, prev_x_b, self._to_basis(x_t),
+                                               prev_mean_b, self._to_basis(x0_a), params, reduce,
+                                               resets)
+            elif sigma_changed:
+                cov = cov_mod.time_update(state.cov, state.prev_sigma, sigma, reduce)
+
+        with profiling.span("fh.solve", device=dev):
+            # (4) solve (A Sigma_0 A^T + sigma_s^2 I) u = y - A x0;  mat = A^T u
+            dct_basis = self.image_base_covariance.startswith("dct")
+            # the mean eigenvalue of Sigma_0 per sample: the scalar preconditioner
+            # of the solvers that take no spectrum (inpainting, identity basis)
+            gram = reduce(torch.bmm(cov.Ut, cov.Ut.transpose(1, 2)))
+            lr_trace = torch.sum(cov.M * gram, dim=(-2, -1))
+            cov_vbar = (reduce(torch.sum(cov.diag, dim=-1)) + lr_trace) / x_t[0].numel()
+            recycle = self.cg_warm_start == "prev"
+            recycle_kw = (dict(u_init=state.prev_u, u_init_valid=state.step > 0,
+                               return_u=True) if recycle else {})
+            analytic_case = self.use_analytic_var_at_end and sigma < self.mle_sigma_thres
             if analytic_case:
-                return g
-            s = torch.std((g * sigma**2).reshape(g.shape[0], -1), dim=-1, correction=0)
-            use_fb = s > self.denoiser_mean_error_threshold
-            return torch.where(use_fb[:, None, None, None], fallback, g)
+                # below the threshold the solve takes the recon_mse variance on
+                # the scipy budget, with the mechanism's CG knobs
+                var = _analytic_var(self.dataset, sigma)
+                solved = choose_solver(self.forward_operator, y, x0_a,
+                                       theta0_var=torch.full_like(x0_a, var), method="scipy",
+                                       max_rtol=self.max_rtol, sigma_t=sigma,
+                                       use_rtol_func=self.use_rtol_func, maxiter=self.cg_maxiter,
+                                       return_info=True, precondition=self.cg_precondition,
+                                       stall_iters=self.cg_stall_iters,
+                                       rtol_floor=self.rtol_floor,
+                                       track_best=self.cg_track_best, decide=self._decide,
+                                       **recycle_kw)
+            else:
+                solved = choose_solver(self.forward_operator, y, x0_a,
+                                       cov_mv=lambda v: self.cov_matvec_pixel(cov, v),
+                                       method=self.solver_type, max_rtol=self.max_rtol,
+                                       sigma_t=sigma, use_rtol_func=self.use_rtol_func,
+                                       maxiter=self.cg_maxiter, cov_trace_mean=cov_vbar,
+                                       return_info=True, precondition=self.cg_precondition,
+                                       stall_iters=self.cg_stall_iters,
+                                       cov_dct_diag=self._whole(lowrank.diag_of(cov),
+                                                                x0_a[0].numel())
+                                       if dct_basis else None,
+                                       rtol_floor=self.rtol_floor,
+                                       track_best=self.cg_track_best,
+                                       cg_coords=self.cg_coords, decide=self._decide, **recycle_kw)
+            if recycle:
+                mat, cg_info, u_next = solved
+            else:
+                (mat, cg_info), u_next = solved, state.prev_u
 
-        if self.guidance_gradient == "covariance":
-            grad = fallback
-        elif self.guidance_gradient == "hybrid":
-            grad = (guarded(pullback(mat.float())) if sigma < self.guidance_vjp_below
-                    else fallback)
-        else:
-            grad = guarded(pullback(mat.float()))
-        update = grad * self.cond_scaling * sigma**2
-        if self.guidance_update_bound is not None:
-            gb = float(self.guidance_update_bound)
-            update = torch.clamp(update, -gb, gb)
-        # a chain whose solve diverged falls back to the unguided mean
-        update = torch.where(torch.isfinite(update), update, torch.zeros_like(update))
-        x0_new = x0 + update
-        # a non-finite recycled start would poison every later solve
-        u_next = torch.where(torch.isfinite(u_next), u_next, torch.zeros_like(u_next))
-        new_state = FreeHunchState(
-            cov=cov, prev_sigma=sigma, prev_x=x_t, prev_mean=x0_a, prev_u=u_next.to(adt),
-            step=state.step + 1, cg_niter=cg_info.niter,
-            cg_resnorm=torch.mean(cg_info.residual_norm).float(),
-            cg_optfrac=torch.mean(cg_info.optimal.float()),
-            cg_host_syncs=cg_info.host_syncs, cov_resets=resets)
+        with profiling.span("fh.guide", device=dev):
+            # (5) guidance gradient with the large-update fallback; where mat was
+            # solved against var * I, every non-vjp gradient is var * mat / sigma^2
+            if analytic_case:
+                fallback = (var * mat / sigma**2).float()
+            else:
+                fallback = (self.cov_matvec_pixel(cov, mat) / sigma**2).float()
+
+            def guarded(g):
+                if analytic_case:
+                    return g
+                s = torch.std((g * sigma**2).reshape(g.shape[0], -1), dim=-1, correction=0)
+                use_fb = s > self.denoiser_mean_error_threshold
+                return torch.where(use_fb[:, None, None, None], fallback, g)
+
+            if self.guidance_gradient == "covariance":
+                grad = fallback
+            elif self.guidance_gradient == "hybrid":
+                grad = (guarded(pullback(mat.float())) if sigma < self.guidance_vjp_below
+                        else fallback)
+            else:
+                grad = guarded(pullback(mat.float()))
+            update = grad * self.cond_scaling * sigma**2
+            if self.guidance_update_bound is not None:
+                gb = float(self.guidance_update_bound)
+                update = torch.clamp(update, -gb, gb)
+            # a chain whose solve diverged falls back to the unguided mean
+            update = torch.where(torch.isfinite(update), update, torch.zeros_like(update))
+            x0_new = x0 + update
+            # a non-finite recycled start would poison every later solve
+            u_next = torch.where(torch.isfinite(u_next), u_next, torch.zeros_like(u_next))
+            new_state = FreeHunchState(
+                cov=cov, prev_sigma=sigma, prev_x=x_t, prev_mean=x0_a, prev_u=u_next.to(adt),
+                step=state.step + 1, cg_niter=cg_info.niter,
+                cg_resnorm=torch.mean(cg_info.residual_norm).float(),
+                cg_optfrac=torch.mean(cg_info.optimal.float()),
+                cg_host_syncs=cg_info.host_syncs, cov_resets=resets)
         return x0_new, new_state

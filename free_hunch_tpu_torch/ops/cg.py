@@ -15,12 +15,25 @@ counts them. Each goes through ``decide`` (default ``bool``): under a model
 group, ``parallel/collectives.py::decide``, which checks that the group's
 ranks, which run the CG on replicated vectors, take the same branch.
 Capturing the body in a CUDA graph is later work.
+
+While a profiler records (``utils/profiling.py``), each read is a
+``host.read`` span, each solve counts ``cg.solves``, and the solve keeps,
+on the card, why each row stopped (``STOP_REASONS``) and whether a row
+that had to move never improved on its start: the tallies ``cg.rows`` and
+``cg.no_step``. Off, no extra kernel runs.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from free_hunch_tpu_torch.utils import profiling
+
+# why a row stopped: it met rtol or atol; it stalled at a proven floor; p^T A p
+# broke down; its residual went non-finite; it ran out of iterations
+STOP_REASONS = ("tol", "floor", "breakdown", "nonfinite", "maxiter")
+_TOL, _FLOOR, _BREAKDOWN, _NONFINITE, _MAXITER = range(5)
 
 
 class CGInfo(NamedTuple):
@@ -47,7 +60,15 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
     rule; the decisions here are the same, step for step.
 
     Returns (x, CGInfo): the best-residual iterate, or each row's last
-    iterate when ``track_best=False``."""
+    iterate when ``track_best=False``.
+
+    While a profiler records, a row's stopping reason is the rule that took
+    it out of the active set (non-finite before breakdown before the
+    tolerance before the floor; ``maxiter`` for rows still active at the
+    end; rows that met the tolerance or were non-finite at the start count
+    as such), tallied on the card into ``cg.rows``; ``cg.no_step`` counts
+    the rows active at the start whose best iterate is their start: with
+    ``track_best`` (the default) the iterate returned."""
     dtype, dev = b.dtype, b.device
     batch = b.shape[0]
     if x0 is None:
@@ -73,11 +94,18 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
     bx = x0
     i = 0
     syncs = 0
+    traced = profiling.on()
+    if traced:
+        # only kernels the loop runs anyway (int32 fills and where, bool
+        # algebra): the first traced solve loads no new module onto the card
+        codes = [torch.full_like(stall, c) for c in range(len(STOP_REASONS))]
+        reason = torch.where(torch.isfinite(best), codes[_TOL], codes[_NONFINITE])
+        never = active   # active rows whose best iterate is still their start
     while i < maxiter:
         forced = i < min_iter
         if not forced:
             syncs += 1
-            if not decide(active.any()):
+            if not profiling.host_read(active.any(), decide):
                 break
         act = torch.ones_like(active) if forced else active
         ap = matvec(p)
@@ -99,6 +127,8 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
         take = (res < best) & torch.isfinite(res)
         if forced:
             take = torch.ones_like(take)
+        if traced:
+            never = never & ~take
         bx = torch.where(take[:, None], x, bx)
         best = res if forced else torch.minimum(best, res)
         engaged = best < stall_engage * b_norm
@@ -108,7 +138,7 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
             # prove the floor before freezing: one extra matvec, only when
             # some active row's counter fired
             syncs += 1
-            if decide((stall_hit & act).any()):
+            if profiling.host_read((stall_hit & act).any(), decide):
                 ax = matvec(x)
                 true_r = b - ax
                 true_res = torch.sqrt(_dot(true_r, true_r))
@@ -123,10 +153,20 @@ def cg_batch(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = Non
         else:
             frozen = stall_hit
         active = act & (res > stop) & ~frozen & torch.isfinite(res) & ~breakdown
+        if traced:
+            why = torch.where(res > stop, codes[_FLOOR], codes[_TOL])
+            why = torch.where(breakdown, codes[_BREAKDOWN], why)
+            why = torch.where(torch.isfinite(res), why, codes[_NONFINITE])
+            reason = torch.where(act & ~active, why, reason)
         rz = rz_new
         i += 1
 
     ret_res = best if track_best else torch.sqrt(_dot(r, r))
+    if traced:
+        profiling.count("cg.solves")
+        profiling.tally("cg.rows", torch.where(active, codes[_MAXITER], reason), STOP_REASONS)
+        profiling.tally("cg.no_step", torch.where(never, codes[1], codes[0]),
+                        ("other", "no_step"))
     return (bx if track_best else x), CGInfo(
         niter=i, residual_norm=ret_res, optimal=ret_res <= stop, host_syncs=syncs)
 

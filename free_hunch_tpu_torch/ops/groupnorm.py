@@ -46,6 +46,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from free_hunch_tpu_torch.utils import profiling
+
 # Calls that launched the CUDA kernel sequence (stats, finalize, apply; or
 # the one cluster kernel). Plain-version calls on CPU tensors do not count.
 launches = 0
@@ -267,7 +269,7 @@ class _GroupNormSiLU(torch.autograd.Function):
         x, gamma, beta = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         # the profiler range lets a trace attribute the backward's device time
-        with torch.profiler.record_function("groupnorm_silu_backward"), \
+        with profiling.span("groupnorm_silu_backward"), \
                 torch.enable_grad():
             ins = [t.detach().requires_grad_(r) for t, r in zip((x, gamma, beta), need)]
             y = groupnorm_silu_plain(*ins, *ctx.cfg)
@@ -424,7 +426,7 @@ class _GroupNormSiLUSharded(torch.autograd.Function):
     def backward(ctx, g):
         x, gamma, beta = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
-        with torch.profiler.record_function("groupnorm_silu_backward"), \
+        with profiling.span("groupnorm_silu_backward"), \
                 torch.enable_grad():
             ins = [t.detach().requires_grad_(r) for t, r in zip((x, gamma, beta), need)]
             y = groupnorm_silu_sharded_plain(*ins, *ctx.cfg)

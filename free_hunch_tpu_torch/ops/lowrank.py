@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from free_hunch_tpu_torch import check_full_f32
+from free_hunch_tpu_torch.utils import profiling
 
 Reduce = Callable[[torch.Tensor], torch.Tensor]
 
@@ -176,7 +177,7 @@ def append_pair(rep: LowRank, col_a: torch.Tensor, w_a: torch.Tensor,
     each row that compress reset to k = 0 adds one, in place."""
     K = rep.capacity
     need = rep.k + 2 > K
-    if bool(need.any()):
+    if profiling.host_read(need.any()):
         small, reset = _compress(rep, K - 2, reduce)
         rep = select(need, small, rep)
         if resets is not None:

@@ -57,6 +57,7 @@ from free_hunch_tpu_torch.ops.gn_quant import (_gn_silu_ref_f32, gn_silu_quant,
                                                gn_silu_sharded_ref_f32)
 from free_hunch_tpu_torch.ops.groupnorm import device_sms
 from free_hunch_tpu_torch.parallel import collectives as coll
+from free_hunch_tpu_torch.utils import profiling
 
 # Calls that launched K3. Plain-version calls on CPU tensors do not count.
 launches = 0
@@ -496,7 +497,7 @@ class _GNQuantConv(torch.autograd.Function):
         pad, groups, eps = ctx.cfg
         mg = ctx.mg
         need = ctx.needs_input_grad[:3]
-        with torch.profiler.record_function("gn_quant_conv_backward"):
+        with profiling.span("gn_quant_conv_backward"):
             dy = _int8_pullback(g, ctx.qw, pad, torch.float32) if mg is None else \
                 _int8_pullback(g, ctx.qw, pad, torch.float32, mg, ctx.halo)
             with torch.enable_grad():

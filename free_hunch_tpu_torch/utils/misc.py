@@ -3,16 +3,18 @@ sampler and a parameter summary.
 
 Counterpart of ``free_hunch_tpu/utils/misc.py``. ``set_random_seed``
 returns a seeded ``torch.Generator`` where the JAX package returns a PRNG
-key; ``profiled_region`` is a ``torch.profiler.record_function`` span.
+key; ``profiled_region`` and ``profiled_function`` are the tracer's
+``utils/profiling.py::span``.
 """
 from __future__ import annotations
 
-import contextlib
 import random
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from free_hunch_tpu_torch.utils import profiling
 
 
 def set_random_seed(seed: int, rank: int = 0, device="cpu") -> torch.Generator:
@@ -34,16 +36,14 @@ def assert_shape(arr, ref_shape) -> None:
             raise AssertionError(f"wrong size for dim {i}: got {got}, expected {want}")
 
 
-@contextlib.contextmanager
 def profiled_region(name: str):
-    """Named span in ``torch.profiler`` traces."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named span in ``torch.profiler`` traces (``profiling.span``)."""
+    return profiling.span(name)
 
 
 def profiled_function(fn):
     def wrapper(*args, **kwargs):
-        with profiled_region(fn.__name__):
+        with profiling.span(fn.__name__):
             return fn(*args, **kwargs)
     wrapper.__name__ = fn.__name__
     return wrapper
