@@ -513,24 +513,109 @@ def check_gn(shape, dtype, silu, gen, reps=20, backward=True, measure=True, grou
                        max(2, reps // 4))
     library_ms = time_ms(lib, reps)
     # the guidance vjp's pullback through this call: the autograd.Function's
-    # backward, which recomputes the plain version (there is no backward kernel)
-    bwd_ms = 0.0
-    if backward:
-        xg = x.detach().requires_grad_(True)
-        yg = gn.groupnorm_silu(xg, g, b, groups, eps, silu)
-        ct = torch.ones_like(yg)
-        bwd_ms = time_ms(lambda: torch.autograd.grad(yg, xg, ct, retain_graph=True),
-                         max(2, reps // 4))
+    # backward (the backward kernel), beside plain autograd and its bound
+    bwd = check_gn_backward(x, g, b, groups, eps, silu, gen, max(2, reps // 4)) \
+        if backward else dict(bwd_ms=0.0)
     # each input read once, the output written once
     nbytes = 2 * x.numel() * x.element_size() + 2 * c * 4
     flops = GN_FLOPS_PER_ELEM[silu] * x.numel()
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return dict(shape=shape, dtype=str(dtype).replace("torch.", ""), silu=silu,
                 max_abs_err=err, tol=tol, ms=ms, graph_ms=graph_ms, passes=passes,
-                plain_ms=plain_ms, library_ms=library_ms, bwd_ms=bwd_ms, bytes_ms=bytes_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bytes_ms=bytes_ms,
                 tbps=nbytes / ms / 1e9, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", **bwd)
+
+
+def check_gn_backward(x, g, b, groups, eps, silu, gen, reps) -> dict:
+    """The pullback of one K1 call as the guidance vjp takes it (through
+    ``groupnorm_silu``'s autograd.Function: the backward kernel where the
+    tree has one), held to the plain twin where the tree has one (two bf16
+    ulps of the magnitude, or rtol 1e-4 / atol 1e-5 in f32) and timed per
+    call, eager (with ``autograd.grad``'s own host cost): ``bwd_ms``, each
+    kernel's device time (``bwd_passes``),
+    plain autograd's recompute and pullback (``bwd_plain_ms``, the port's
+    backward before the kernel) and the bound (x and dy read once, dx
+    written once, over the HBM's bytes/s: ``bwd_bound_ms``)."""
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+    xg = x.detach().requires_grad_(True)
+    yg = gn.groupnorm_silu(xg, g, b, groups, eps, silu)
+    kernel = lambda: torch.autograd.grad(yg, xg, dy, retain_graph=True)[0]  # noqa: E731
+    out = {}
+    twin = getattr(gn, "groupnorm_silu_backward_plain", None)
+    if twin is not None:
+        dx, want = kernel(), twin(x, dy, g, b, groups, eps, silu)
+        torch.cuda.synchronize()
+        err = float((dx.float() - want.float()).abs().max())
+        if x.dtype == torch.float32:
+            torch.testing.assert_close(dx, want, rtol=1e-4, atol=1e-5)
+        else:
+            limit = 2 * 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+            if not err <= limit:
+                raise AssertionError(f"groupnorm backward {tuple(x.shape)}: max abs err "
+                                     f"{err} > {limit}")
+        out["bwd_err"] = err
+        del dx, want
+
+    def plain():
+        xd = x.detach().requires_grad_(True)
+        return torch.autograd.grad(gn.groupnorm_silu_plain(xd, g, b, groups, eps, silu), xd,
+                                   dy)[0]
+    out.update(bwd_ms=time_ms(kernel, reps), bwd_passes=pass_ms(kernel),
+               bwd_plain_ms=time_ms(plain, max(2, reps // 2)),
+               bwd_bound_ms=3 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
+def gn_bwd_phase(batch: int, seed: int) -> dict:
+    """K1's pullback alone (``--gn-bwd``), at every distinct GroupNorm call
+    of one forward of the ImageNet and the FFHQ 256 px UNets at ``batch``
+    (seeded random weights; the shapes found by the hooks): the backward as
+    the guidance vjp takes it against the plain twin, and its time beside
+    plain autograd's and the bound, per call and summed over a guided
+    call's norms (one pullback each). A copy of this script beside an
+    older tree's checkout times that tree's backward (plain autograd
+    there)."""
+    sums = {}
+    for label, setup in (("imagenet", SETUP_256), ("ffhq", SETUP_FFHQ)):
+        with tempfile.TemporaryDirectory() as tmp:
+            model, model_args = loading.load_model(
+                str(Path(tmp) / "missing.pt"), str(setup), dtype=torch.bfloat16,
+                init_random_if_missing=True, rng_seed=seed, remat=True)
+        shapes = gn_shapes_of_forward(model, batch, model_args["image_size"], "cuda")
+        del model
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        rows = []
+        say(f"K1's backward at every distinct shape of one {label} forward at batch {batch} "
+            f"(ms per call, eager; each kernel's device time):")
+        for (shape, dtype, silu), calls in sorted(shapes.items(),
+                                                  key=lambda kv: -np.prod(kv[0][0])):
+            c = shape[-1]
+            x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+            b = torch.randn(c, generator=gen, device="cuda") * 0.1
+            r = check_gn_backward(x, g, b, 32, 1e-5, silu, gen, 10)
+            del x
+            r["bwd_device_ms"] = sum(r["bwd_passes"].values())
+            rows.append((calls, shape[1], r))
+            say(f"  {calls:3d} x {tuple(shape)} {str(dtype)[6:]} silu={silu}: eager "
+                f"{r['bwd_ms']:.4f}, device {r['bwd_device_ms']:.4f} "
+                f"({fmt_passes(r['bwd_passes'])}); bound {r['bwd_bound_ms']:.4f} "
+                f"({100 * r['bwd_bound_ms'] / max(r['bwd_device_ms'], 1e-9):.1f} % of the "
+                f"device time); plain autograd {r['bwd_plain_ms']:.4f}; err "
+                f"{r.get('bwd_err', 'n/a')}")
+        tot = {k: sum(calls * r[k] for calls, _, r in rows)
+               for k in ("bwd_ms", "bwd_device_ms", "bwd_plain_ms", "bwd_bound_ms")}
+        small = sum(calls * r["bwd_device_ms"] for calls, h, r in rows if h <= 32)
+        sums[label] = dict(tot, calls=sum(calls for calls, _, _ in rows), small_ms=small)
+        say(f"  {label}: the {sums[label]['calls']} pullbacks of one guided call: device "
+            f"{tot['bwd_device_ms']:.3f} ms (8-32 px calls {small:.3f}), eager "
+            f"{tot['bwd_ms']:.3f} ms, bound {tot['bwd_bound_ms']:.3f} ms "
+            f"({100 * tot['bwd_bound_ms'] / max(tot['bwd_device_ms'], 1e-9):.2f} % of the "
+            f"device time), plain autograd {tot['bwd_plain_ms']:.3f} ms")
+    return sums
 
 
 def sum_entry(entry: dict, rows, keys) -> dict:
@@ -585,8 +670,10 @@ def gn_kernel_phase(forward_shapes: Counter, small_batches: dict) -> dict:
             f"{r['max_abs_err']:.3g} kernel {r['ms']:.4f} (graph {r['graph_ms']:.4f}; "
             f"{fmt_passes(r['passes'])}; {r['tbps']:.2f} TB/s) plain {r['plain_ms']:.4f} "
             f"library {r['library_ms']:.4f} bound {r['bound_ms']:.4f} backward "
-            f"{r['bwd_ms']:.4f}")
-    e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms", "bwd_ms"))
+            f"{r['bwd_ms']:.4f} (plain autograd {r['bwd_plain_ms']:.4f}, bound "
+            f"{r['bwd_bound_ms']:.4f})")
+    e = sum_entry(GN_ENTRY, rows, ("ms", "graph_ms", "plain_ms", "library_ms", "bwd_ms",
+                                   "bwd_plain_ms", "bwd_bound_ms"))
     for n, shapes in sorted(small_batches.items(), reverse=True):
         say(f"  the driver's batch of {n}, per distinct shape (calls):")
         err = 0.0
@@ -603,7 +690,8 @@ def gn_kernel_phase(forward_shapes: Counter, small_batches: dict) -> dict:
         f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.3f} ms, "
         f"bound {e['bound_ms']:.3f} ms ({e['bound_by']}: {e['bytes_ms']:.3f} ms of bytes at "
         f"{HBM_BYTES_PER_S / 1e12} TB/s, {e['ops_ms']:.3f} ms of f32 operations); "
-        f"their backward in the guidance vjp (plain autograd) {e['bwd_ms']:.3f} ms")
+        f"their backward in the guidance vjp (the backward kernel) {e['bwd_ms']:.3f} ms, "
+        f"plain autograd {e['bwd_plain_ms']:.3f} ms, bound {e['bwd_bound_ms']:.3f} ms")
     return {k: e[k] for k in list(GN_ENTRY) + ["max_abs_err", "ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "graph_ms",
                                                "passes_ms", "tbps"]
@@ -4812,6 +4900,9 @@ def main(argv=None) -> int:
                     "one call, and every cut of the small layers; no model, no result lines")
     ap.add_argument("--gn", action="store_true", help="K1 and K2 alone: per call and per "
                     "pass at every distinct shape of one forward; no slice, no result lines")
+    ap.add_argument("--gn-bwd", action="store_true", help="K1's backward alone: per call at "
+                    "every distinct shape of one ImageNet and one FFHQ forward, beside plain "
+                    "autograd and the bound; no slice, no result lines")
     ap.add_argument("--mechanisms", action="store_true", help="the mechanism reference, the "
                     "SR and inpainting slices, the sweep and the CG-coordinates reading alone; "
                     "no result lines")
@@ -4864,6 +4955,10 @@ def main(argv=None) -> int:
     if args.gn:
         gn_phase(args.batch, args.seed)
         say(f"chip_smoke --gn wall time {time.perf_counter() - t_start:.1f} s on {smi}")
+        return 0
+    if args.gn_bwd:
+        gn_bwd_phase(args.batch, args.seed)
+        say(f"chip_smoke --gn-bwd wall time {time.perf_counter() - t_start:.1f} s on {smi}")
         return 0
     if args.driver:
         driver_reference_phase(args.seed)

@@ -26,6 +26,9 @@
 //      launch bounds hold it to 64 registers, so four 256-thread blocks fit
 //      an SM. Its SiLU takes __expf and an approximate division (within 2
 //      f32 ulps, far inside the bf16 rounding of the output; gn_stats.cuh).
+// The two-pass path can keep its statistics for the backward: the caller
+// then gives them a buffer of their own (the same launches and bytes). The
+// input gradient, fh_groupnorm_backward, is csrc/gn_backward.cuh's.
 // A height shard (the entries at the end) runs 1 and 2 with (mean, M2,
 // count) out, and after the caller's gather gn_apply_merged_kernel, which
 // merges the ranks' statistics, each weighted by its own count, in each
@@ -33,6 +36,7 @@
 // rows launches nothing and its partial is (0, 0, 0), which the merge
 // skips.
 
+#include "gn_backward.cuh"
 #include "gn_cluster.cuh"
 #include "gn_stats.cuh"
 
@@ -171,19 +175,39 @@ int launch_apply(const void* x, void* y, const float2* stats, const float* gamma
 
 template <typename T>
 int launch(const void* x, void* y, const float* gamma, const float* beta, float* scratch,
-           int N, int S, int C, int G, int rows, int P, int ty, int lanes, float eps,
-           int apply_silu, int cluster, cudaStream_t stream) {
+           float* stats_out, int N, int S, int C, int G, int rows, int P, int ty, int lanes,
+           float eps, int apply_silu, int cluster, cudaStream_t stream) {
   if (cluster)
     return apply_silu ? launch_cluster<T, 1>(x, gamma, beta, y, nullptr, nullptr, N, S, C, G,
                                              rows, P, ty, eps, 0, stream)
                       : launch_cluster<T, 0>(x, gamma, beta, y, nullptr, nullptr, N, S, C, G,
                                              rows, P, ty, eps, 0, stream);
   float2* partial = reinterpret_cast<float2*>(scratch);
-  float2* stats = partial + (size_t)N * P * G;
+  float2* stats = stats_out ? reinterpret_cast<float2*>(stats_out) : partial + (size_t)N * P * G;
   const int err = launch_stats<T, false>(x, partial, reinterpret_cast<float*>(stats), N, S, C, G,
                                          rows, P, ty, lanes, eps, stream);
   if (err != 0) return err;
   return launch_apply<T>(x, y, stats, gamma, beta, N, S, C, G, rows, P, ty, apply_silu, stream);
+}
+
+// The input gradient (csrc/gn_backward.cuh): the cluster path (with the
+// forward's statistics, or computing them), or the two launches of the
+// two-pass path, which take the forward's statistics.
+template <typename T, bool SILU>
+int launch_backward(const void* x, const void* dy, void* dx, const float* gamma,
+                    const float* beta, const float* stats, float* scratch, int N, int S, int C,
+                    int G, int rows, int P, int ty, float eps, int cluster,
+                    cudaStream_t stream) {
+  const float2* st = reinterpret_cast<const float2*>(stats);
+  if (cluster)
+    return st ? launch_bwd_cluster<T, SILU, true>(x, dy, st, gamma, beta, dx, N, S, C, G, rows,
+                                                  P, ty, eps, stream)
+              : launch_bwd_cluster<T, SILU, false>(x, dy, nullptr, gamma, beta, dx, N, S, C, G,
+                                                   rows, P, ty, eps, stream);
+  if (st == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_bwd_two_pass<T, SILU>(x, dy, st, gamma, beta, dx,
+                                      reinterpret_cast<float2*>(scratch), N, S, C, G, rows, P,
+                                      ty, stream);
 }
 
 template <typename T, bool SILU>
@@ -201,22 +225,54 @@ int launch_apply_merged(const void* x, void* y, const float* parts, int M, float
 // Plain C entry point, bound with ctypes. The caller (ops/groupnorm.py)
 // validates shapes, types, contiguity and alignment, allocates y and, on the
 // two-pass path, the scratch buffer (N * P * G + N * G float2: the chunk
-// partials, then the statistics), and chooses the path and the chunking
+// partials, then the statistics) or, where it keeps the statistics for the
+// backward, the chunk partials in scratch and the (mean, rstd) per (sample,
+// group) in stats (N * G float2), and chooses the path and the chunking
 // (gn_plan): `cluster` takes the one-launch path of csrc/gn_cluster.cuh
-// (one cluster of P blocks a sample; no scratch). Returns the first CUDA
-// error code, 0 on success.
+// (one cluster of P blocks a sample; no scratch, no statistics out).
+// Returns the first CUDA error code, 0 on success.
 extern "C" int fh_groupnorm_forward(const void* x, void* y, const float* gamma,
-                                    const float* beta, float* scratch, int N, int S, int C,
-                                    int G, int rows_per_chunk, int P, int ty, int lanes,
-                                    float eps, int apply_silu, int cluster, int is_bf16,
-                                    void* stream) {
+                                    const float* beta, float* scratch, float* stats, int N,
+                                    int S, int C, int G, int rows_per_chunk, int P, int ty,
+                                    int lanes, float eps, int apply_silu, int cluster,
+                                    int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // so that an error reported here is this call's own
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, y, gamma, beta, scratch, N, S, C, G, rows_per_chunk, P,
-                                 ty, lanes, eps, apply_silu, cluster, s);
-  return launch<float>(x, y, gamma, beta, scratch, N, S, C, G, rows_per_chunk, P, ty, lanes,
-                       eps, apply_silu, cluster, s);
+    return launch<__nv_bfloat16>(x, y, gamma, beta, scratch, stats, N, S, C, G, rows_per_chunk,
+                                 P, ty, lanes, eps, apply_silu, cluster, s);
+  return launch<float>(x, y, gamma, beta, scratch, stats, N, S, C, G, rows_per_chunk, P, ty,
+                       lanes, eps, apply_silu, cluster, s);
+}
+
+// The input gradient dx (x's type) of the forward at x for the cotangent
+// dy (x's type), csrc/gn_backward.cuh. The caller (ops/groupnorm.py)
+// validates the tensors, allocates dx and the scratch and chooses the path
+// and the chunking (gn_bwd_plan): `cluster` takes the one-launch path (no
+// scratch; stats may be null, and the kernel computes them); else the
+// two-pass path, whose scratch holds the chunk sums (N * P * G float2) and
+// which needs stats. stats: the forward's (mean, rstd) per (sample, group).
+// Returns the first CUDA error code, 0 on success.
+extern "C" int fh_groupnorm_backward(const void* x, const void* dy, void* dx, const float* gamma,
+                                     const float* beta, const float* stats, float* scratch,
+                                     int N, int S, int C, int G, int rows_per_chunk, int P,
+                                     int ty, float eps, int apply_silu, int cluster, int is_bf16,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();
+  if (is_bf16)
+    return apply_silu
+               ? launch_backward<__nv_bfloat16, true>(x, dy, dx, gamma, beta, stats, scratch, N,
+                                                      S, C, G, rows_per_chunk, P, ty, eps,
+                                                      cluster, s)
+               : launch_backward<__nv_bfloat16, false>(x, dy, dx, gamma, beta, stats, scratch,
+                                                       N, S, C, G, rows_per_chunk, P, ty, eps,
+                                                       cluster, s);
+  return apply_silu ? launch_backward<float, true>(x, dy, dx, gamma, beta, stats, scratch, N, S,
+                                                   C, G, rows_per_chunk, P, ty, eps, cluster, s)
+                    : launch_backward<float, false>(x, dy, dx, gamma, beta, stats, scratch, N,
+                                                    S, C, G, rows_per_chunk, P, ty, eps,
+                                                    cluster, s);
 }
 
 // The two halves of the two-pass path, for a height shard of a sample

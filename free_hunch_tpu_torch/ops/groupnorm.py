@@ -21,9 +21,17 @@ the UNet lands here: 101 per forward of the 256 px model (42 ResBlocks x 2,
 bf16 decoder concat. ``chip_smoke.py`` counts the bytes of every call of
 one forward from its shapes and prints the bound.
 
-The gradient is the JAX package's ``custom_vjp`` (:147-163): no backward
-kernel; the backward recomputes the plain version under autograd and pulls
-the cotangent back through it.
+The gradient with respect to x is a hand-written kernel too
+(``csrc/gn_backward.cuh``, entry ``fh_groupnorm_backward``), which replaces
+no TPU kernel: the JAX package's ``custom_vjp`` (:147-163) differentiates
+the plain version, as this port did under autograd (about 40 f32 ATen
+launches a norm). Its plain twin is ``groupnorm_silu_backward_plain``, its
+planner ``gn_bwd_plan``: calls of more than 8 x 128 rows a sample (the
+64-256 px calls) take two launches (sums, then dx) with the (mean, rstd)
+that the forward's two-pass path computed, kept for it; the others (and
+any call whose forward took K1's one-launch path, which keeps no
+statistics) one launch, a thread-block cluster a sample. Where the gradient of gamma or beta is asked for, or on the
+CPU, the backward stays autograd of the plain version.
 
 On a height shard (``UNetModel(model_group=)``: each rank of a model
 group holds some rows of every sample, maybe none) ``groupnorm_silu_sharded``
@@ -51,6 +59,8 @@ from free_hunch_tpu_torch.utils import profiling
 # Calls that launched the CUDA kernel sequence (stats, finalize, apply; or
 # the one cluster kernel). Plain-version calls on CPU tensors do not count.
 launches = 0
+# Calls that launched the backward kernel (``groupnorm_silu_backward_cuda``).
+bwd_launches = 0
 # The height-sharded calls' launches of the stats entry (stats, finalize)
 # and of the apply entry (``groupnorm_silu_sharded``): one of each a call.
 sharded_launches = {"stats": 0, "apply": 0}
@@ -164,6 +174,61 @@ def gn_plan(n: int, s: int, c: int, groups: int, itemsize: int, sms: int,
     return GNPlan(tx, ty, rows, p, lanes, finals, smem, scratch, path, 2)
 
 
+# The backward (csrc/gn_backward.cuh): blocks of at most 512 threads; the
+# one-launch cluster path where a sample's chunk of ceil(s / 8) rows is at
+# most 128 rows (the 8-32 px calls, re-read from L2) or the statistics are
+# not carried.
+_BWD_THREADS = 512
+_BWD_CLUSTER_ROWS = 128
+_BWD_UNROLL = 2
+
+
+@functools.lru_cache(maxsize=4096)
+def gn_bwd_plan(n: int, s: int, c: int, groups: int, itemsize: int, sms: int,
+                carried: bool, path: Optional[str] = None) -> GNPlan:
+    """The backward kernel's plan for n samples of s rows of c channels of
+    ``itemsize`` bytes on a device with ``sms`` SMs; ``carried``: whether
+    the forward's (mean, rstd) come with the call (K1's two-pass path keeps
+    them, its one-launch path does not).
+
+    The "two-pass" path where they are carried and a sample's chunk of
+    ceil(s / 8) rows is more than 128 rows (the 64-256 px calls): blocks of
+    about 256 threads, enough chunks per sample for about four blocks per SM
+    (at most 1024), each at least one unrolled step of every thread row;
+    sums, then dx. Otherwise the "cluster" path: one cluster of up to 8
+    blocks a sample, one launch, up to 512 threads a block, which computes
+    the statistics where they are not carried. ``reads`` counts the reads
+    of x, ``scratch`` the f32 elements of scratch (the chunk sums). ``path``
+    forces a path. Raises where the kernel cannot take the shape."""
+    vec = 16 // itemsize
+    if c % vec or c % groups:
+        raise ValueError(f"groupnorm backward: C={c} must be a multiple of groups={groups} "
+                         f"and of {vec}")
+    tx = c // vec
+    if tx > _BWD_THREADS:
+        raise ValueError(f"groupnorm backward: C/{vec} = {tx} > {_BWD_THREADS}")
+    cl_rows = -(-s // CLUSTER_BLOCKS)
+    if path is None:
+        path = "two-pass" if carried and cl_rows > _BWD_CLUSTER_ROWS else "cluster"
+    if path not in ("cluster", "two-pass") or (path == "two-pass" and not carried):
+        raise ValueError(f"groupnorm backward: no {path} path for ({n}, {s}, {c})"
+                         f"{'' if carried else ' without the statistics'}")
+    if path == "cluster":
+        rows, ty, scratch = cl_rows, max(1, min(_BWD_THREADS // tx, cl_rows)), 0
+    else:
+        ty = max(1, _BLOCK_THREADS // tx)
+        want = max(1, -(-_BLOCKS_PER_SM * sms // n))
+        rows = max(-(-s // min(want, 1024)), _BWD_UNROLL * ty)
+        scratch = 2 * n * -(-s // rows) * groups
+    # the two-pass merge takes a thread a group; the cluster path loops
+    if groups > (tx * ty if path == "two-pass" else _BWD_THREADS):
+        raise ValueError(f"groupnorm backward: groups={groups} > the block's {tx * ty} threads")
+    smem = (2 * ty * c + ty) * 4
+    if smem > MAX_SHARED - 12 * 1024:
+        raise ValueError(f"groupnorm backward: C={c} needs {smem} bytes of shared memory")
+    return GNPlan(tx, ty, rows, -(-s // rows), 1, 1, smem, scratch, path, 2 if carried else 3)
+
+
 def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          groups: int = 32, eps: float = 1e-5,
                          apply_silu: bool = True) -> torch.Tensor:
@@ -189,7 +254,35 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tenso
     return y.to(x.dtype)
 
 
+def groupnorm_silu_backward_plain(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                                  beta: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+                                  apply_silu: bool = True) -> torch.Tensor:
+    """The input gradient of ``groupnorm_silu_plain`` at x for the
+    cotangent dy, in closed form: the backward kernel's arithmetic line for
+    line, in f32, rounded once to x's type. Per (sample, group), with
+    x^ = (x - mean) * rstd, z = gamma x^ + beta and dy^ = dy * SiLU'(z) *
+    gamma: dx = rstd * (dy^ - mean(dy^) - x^ * mean(dy^ x^))."""
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // groups
+    xf = x.float().reshape(n, -1, groups, cg)
+    red = (1, 3)
+    mean = xf.mean(dim=red, keepdim=True)
+    rstd = torch.rsqrt((xf - mean).square().mean(dim=red, keepdim=True) + eps)
+    gm, bt = gamma.float().reshape(groups, cg), beta.float().reshape(groups, cg)
+    xh = (xf - mean) * rstd
+    d = dy.float().reshape(xf.shape)
+    if apply_silu:
+        z = xh * gm + bt
+        sig = 1 / (1 + torch.exp(-z))
+        d = d * (sig * (1 + z * (1 - sig)))
+    dyh = d * gm
+    ca = dyh.mean(dim=red, keepdim=True)
+    cb = (dyh * xh).mean(dim=red, keepdim=True)
+    return (rstd * (dyh - ca - xh * cb)).reshape(x.shape).to(x.dtype)
+
+
 _fn = None
+_bwd_fn = None
 
 
 def _k1_entry():
@@ -197,11 +290,23 @@ def _k1_entry():
     if _fn is None:
         from free_hunch_tpu_torch.ops import _nvcc
         fn = _nvcc.load("groupnorm").fh_groupnorm_forward
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + \
             [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _k1_backward_entry():
+    global _bwd_fn
+    if _bwd_fn is None:
+        from free_hunch_tpu_torch.ops import _nvcc
+        fn = _nvcc.load("groupnorm").fh_groupnorm_backward
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+            [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def groupnorm_silu_cuda(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -233,17 +338,25 @@ def _check_k1_input(x, groups, gamma=None, beta=None):
     return n, s, c
 
 
-def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None):
+def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None, keep_stats=False):
     """K1 as ``groupnorm_silu_cuda`` launches it; ``path`` forces a path
-    (see ``gn_plan``), to compare the two."""
+    (see ``gn_plan``), to compare the two. With ``keep_stats``, returns (y,
+    stats): the (N, G, 2) f32 (mean, rstd) the two-pass path computed, in a
+    tensor of their own (the same launches and bytes), or None on the
+    cluster path, which keeps them on chip."""
     global launches
     n, s, c = _check_k1_input(x, groups, gamma, beta)
     plan = gn_plan(n, s, c, groups, x.element_size(), device_sms(x.device), path=path)
     y = torch.empty_like(x)
-    scratch = torch.empty(plan.scratch, device=x.device, dtype=torch.float32) \
-        if plan.scratch else None
+    scratch = stats = None
+    if plan.scratch:
+        tail = 2 * n * groups if keep_stats else 0
+        scratch = torch.empty(plan.scratch - tail, device=x.device, dtype=torch.float32)
+        if keep_stats:
+            stats = torch.empty((n, groups, 2), device=x.device, dtype=torch.float32)
     err = _k1_entry()(x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                      None if scratch is None else scratch.data_ptr(), n, s, c, groups,
+                      None if scratch is None else scratch.data_ptr(),
+                      None if stats is None else stats.data_ptr(), n, s, c, groups,
                       plan.rows, plan.chunks, plan.ty, plan.lanes, float(eps),
                       int(apply_silu), int(plan.path == "cluster"),
                       int(x.dtype == torch.bfloat16),
@@ -251,30 +364,90 @@ def _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu, path=None):
     if err != 0:
         raise RuntimeError(f"groupnorm kernel launch failed: CUDA error {err}")
     launches += 1
-    return y
+    return (y, stats) if keep_stats else y
+
+
+def groupnorm_silu_backward_cuda(x: torch.Tensor, dy: torch.Tensor, gamma: torch.Tensor,
+                                 beta: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+                                 apply_silu: bool = True, stats: Optional[torch.Tensor] = None,
+                                 path: Optional[str] = None) -> torch.Tensor:
+    """The backward kernel: dx (x's type) of ``groupnorm_silu`` at a
+    contiguous channels-last CUDA x for the cotangent dy (x's shape and
+    type). ``stats``: the forward's (N, G, 2) f32 (mean, rstd), or None to
+    compute them; ``path`` forces a path (see ``gn_bwd_plan``). Raises on
+    anything the kernel does not take."""
+    global bwd_launches
+    n, s, c = _check_k1_input(x, groups, gamma, beta)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device or \
+            dy.data_ptr() % 16:
+        raise ValueError("groupnorm backward: dy must be a 16-byte aligned tensor of x's "
+                         "shape, type and device")
+    if stats is not None and (stats.shape != (n, groups, 2) or stats.dtype != torch.float32 or
+                              stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError("groupnorm backward: stats must be contiguous f32 (N, G, 2) on x's "
+                         "device")
+    plan = gn_bwd_plan(n, s, c, groups, x.element_size(), device_sms(x.device),
+                       stats is not None, path)
+    dx = torch.empty_like(x)
+    scratch = torch.empty(plan.scratch, device=x.device, dtype=torch.float32) \
+        if plan.scratch else None
+    entry = _k1_backward_entry()
+    # an operator record, so that the backward's span takes the kernels' time
+    with profiling.launch("fh_groupnorm_backward"):
+        err = entry(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), gamma.data_ptr(),
+                    beta.data_ptr(), None if stats is None else stats.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), n, s, c, groups, plan.rows,
+                    plan.chunks, plan.ty, float(eps), int(apply_silu),
+                    int(plan.path == "cluster"), int(x.dtype == torch.bfloat16),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dx
+
+
+def backward_route(is_cuda: bool, need) -> str:
+    """Which backward a call of ``_GroupNormSiLU`` takes: "kernel" where x
+    lies on a card and only its gradient is asked for, else "plain"
+    (autograd of the plain version: the CPU, or dgamma / dbeta asked for,
+    which the kernel does not compute)."""
+    return "kernel" if is_cuda and tuple(need) == (True, False, False) else "plain"
 
 
 class _GroupNormSiLU(torch.autograd.Function):
-    """Forward: the kernel. Backward: autograd of the plain version
-    (the JAX ``custom_vjp`` ``_bwd``, pallas_groupnorm.py:156-160)."""
+    """Forward: the kernel, keeping the statistics its two-pass path
+    computed. Backward: the backward kernel, or autograd of the plain
+    version (the JAX ``custom_vjp`` ``_bwd``, pallas_groupnorm.py:156-160)
+    where ``backward_route`` says so."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, groups, eps, apply_silu):
-        ctx.save_for_backward(x, gamma, beta)
+        if x.is_cuda:
+            y, stats = _groupnorm_launch(x, gamma, beta, groups, eps, apply_silu,
+                                         keep_stats=True)
+        else:  # groupnorm_silu_cuda raises on it
+            y, stats = groupnorm_silu_cuda(x, gamma, beta, groups, eps, apply_silu), None
+        ctx.save_for_backward(x, gamma, beta, stats)
         ctx.cfg = (groups, eps, apply_silu)
-        return groupnorm_silu_cuda(x, gamma, beta, groups, eps, apply_silu)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x, gamma, beta = ctx.saved_tensors
+        x, gamma, beta, stats = ctx.saved_tensors
         need = ctx.needs_input_grad[:3]
         # the profiler range lets a trace attribute the backward's device time
-        with profiling.span("groupnorm_silu_backward"), \
-                torch.enable_grad():
-            ins = [t.detach().requires_grad_(r) for t, r in zip((x, gamma, beta), need)]
-            y = groupnorm_silu_plain(*ins, *ctx.cfg)
-            wanted = [t for t, r in zip(ins, need) if r]
-            got = iter(torch.autograd.grad(y, wanted, g)) if wanted else iter(())
+        with profiling.span("groupnorm_silu_backward"):
+            if backward_route(x.is_cuda, need) == "kernel":
+                profiling.count("gn_bwd.kernel")
+                dx = groupnorm_silu_backward_cuda(x, g, gamma, beta, *ctx.cfg, stats=stats)
+                return dx, None, None, None, None, None
+            profiling.count("gn_bwd.plain")
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(r) for t, r in zip((x, gamma, beta), need)]
+                y = groupnorm_silu_plain(*ins, *ctx.cfg)
+                wanted = [t for t, r in zip(ins, need) if r]
+                got = iter(torch.autograd.grad(y, wanted, g)) if wanted else iter(())
         return tuple(next(got) if r else None for r in need) + (None, None, None)
 
 

@@ -31,7 +31,12 @@ Off, a span, a count or a tally costs that one flag read. On:
   ``index``'s device, no host read;
 * ``host_read(value, read)``: ``read(value)`` (default ``bool``) for a
   device-to-host read, in a ``host.read`` span and counted as
-  ``host_reads``.
+  ``host_reads``;
+* ``launch(name)``: a host range around a kernel launched from outside
+  ATen (through ``ctypes``), recorded as an operator, to which the profiler
+  links the kernels it launches; a span, a user annotation, takes no
+  kernel's device time of its own, only its operators', so a span around
+  such a launch counts it through this range.
 
 ``snapshot()`` synchronises once, folds the timing events and returns the
 span calls, counts, device walls (seconds) and tallies gathered since
@@ -194,6 +199,15 @@ def trace(log_dir: str, device=None):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def launch(name: str):
+    """A host range around a launch from outside ATen (see the module
+    docstring): the profiler's fast operator record, as compiled Triton
+    launches take it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def annotate(name: str):

@@ -220,6 +220,132 @@ def test_kernel_matches_plain_at_every_ffhq_forward_shape(shape, itemsize):
     test_kernel_matches_plain_at_every_forward_shape(shape, itemsize)
 
 
+# -- K1's backward: the input gradient (csrc/gn_backward.cuh) -----------------
+
+def _close_to_twin(dx, want, dtype):
+    """f32: rtol 1e-4 / atol 1e-5 (other orders of sums, __expf); bf16: both
+    compute in f32 and round once, two bf16 ulps of the magnitude."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, want, rtol=1e-4, atol=1e-5)
+    else:
+        ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+        err = float((dx.float() - want.float()).abs().max())
+        assert err <= 2 * float(ulp), (err, float(ulp))
+
+
+def check_backward(shape, itemsize, seed=12):
+    """The backward kernel at one shape, with and without SiLU: through the
+    autograd Function (the forward's statistics where its two-pass path
+    kept them) and alone with the statistics computed again (the cluster
+    path), each against the plain twin, each bitwise the same on a second
+    run, and one ``bwd_launches`` a call."""
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    for silu in (True, False):
+        want = gn.groupnorm_silu_backward_plain(x, dy, g, b, 32, 1e-5, silu)
+        before = gn.bwd_launches
+        got = []
+        for _ in range(2):
+            xg = x.detach().requires_grad_(True)
+            y = gn.groupnorm_silu(xg, g, b, 32, 1e-5, silu)
+            got.append(torch.autograd.grad(y, xg, dy)[0])
+        for _ in range(2):
+            got.append(gn.groupnorm_silu_backward_cuda(x, dy, g, b, 32, 1e-5, silu))
+        torch.cuda.synchronize()
+        assert gn.bwd_launches == before + 4
+        assert torch.equal(got[0], got[1]) and torch.equal(got[2], got[3])
+        for dx in (got[0], got[2]):
+            assert dx.dtype == dtype and dx.shape == x.shape
+            _close_to_twin(dx, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,itemsize", K1_SHAPES,
+                         ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
+                              for s, z in K1_SHAPES])
+def test_backward_kernel_matches_plain_at_every_forward_shape(shape, itemsize):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    check_backward(shape, itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,itemsize", FFHQ_K1_SHAPES,
+                         ids=[f"{s[1]}px_{s[3]}_{'f32' if z == 4 else 'bf16'}"
+                              for s, z in FFHQ_K1_SHAPES])
+def test_backward_kernel_matches_plain_at_every_ffhq_forward_shape(shape, itemsize):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    check_backward(shape, itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,itemsize", [
+    ((3, 5, 7, 64), 4), ((3, 5, 7, 96), 2), ((2, 17, 13, 256), 2), ((1, 40, 40, 128), 4),
+    ((2, 64, 64, 128), 2)], ids=["ragged_f32", "ragged_bf16", "ragged_17x13", "40px_f32",
+                                 "64px_128"])
+def test_backward_kernel_on_ragged_shapes(shape, itemsize):
+    """Short last chunks, a group narrower than a 16-byte vector, calls
+    whose forward takes K1's one-launch path (no statistics kept) at more
+    than 128 rows a cluster block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    check_backward(shape, itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 8, 1024), (8, 32, 32, 512), (8, 32, 32, 1536)],
+                         ids=["8px_1024", "32px_512", "32px_1536"])
+def test_backward_kernel_two_pass_forced_on_a_small_call(shape):
+    """The two-pass path forced where the planner takes the cluster path,
+    with the statistics of K1's two-pass path; the cluster path with them
+    and without: each holds the plain twin's limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).bfloat16()
+    dy = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    want = gn.groupnorm_silu_backward_plain(x, dy, g, b)
+    _, stats = gn._groupnorm_launch(x, g, b, 32, 1e-5, True, path="two-pass", keep_stats=True)
+    for path, st in (("cluster", None), ("cluster", stats), ("two-pass", stats)):
+        _close_to_twin(gn.groupnorm_silu_backward_cuda(x, dy, g, b, stats=st, path=path), want,
+                       torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_time_lies_under_its_span():
+    """The profiler puts the kernel's device time under the
+    ``groupnorm_silu_backward`` range, which ``gn_bwd_roofline`` reads, and
+    the tracer counts one kernel pullback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    from torch.autograd import DeviceType
+    from free_hunch_tpu_torch.utils import profiling
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for shape in ((8, 64, 64, 512), (8, 16, 16, 1024)):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+        g = torch.ones(shape[-1], device="cuda")
+        b = torch.zeros(shape[-1], device="cuda")
+        y = gn.groupnorm_silu(x, g, b)
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(y, x, torch.ones_like(y))
+            torch.cuda.synchronize()
+        spans = [e for e in prof.events() if e.device_type == DeviceType.CPU and
+                 e.name == "groupnorm_silu_backward"]
+        assert len(spans) == 1 and spans[0].device_time_total > 0, shape
+        assert profiling.snapshot()["counts"] == {"gn_bwd.kernel": 1}
+
+
 def _full_pass_agrees(x, g, b):
     """K2 as planned (the scale from the statistics' extremes, or on the
     cluster path the exact abs-max) against K2 forced through the two-pass

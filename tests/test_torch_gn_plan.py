@@ -189,3 +189,83 @@ def test_counts_of_distinct_shapes():
     k2 = Counter(s for r, s, _ in calls if r == "k2")
     assert sum(k1.values()) == 101 and sum(k2.values()) == 64
     assert len(k1) == 19 and len(k2) == 18
+
+
+# -- the backward kernel's planner (``gn_bwd_plan``) ---------------------------
+
+def ffhq_norm_calls(batch=8):
+    """Every GroupNorm call of one forward of the FFHQ UNet
+    (``models/ffhq_10m_setup.txt``: 128 channels, one res block, attention
+    at 16 px)."""
+    return norm_calls(batch=batch, mc=128, blocks=1, attn_res=(16,))
+
+
+# (n, rows, channels, itemsize) of every distinct norm of both models' forwards
+BWD_SHAPES = sorted({(b, h * w, c, size)
+                     for b in (8, 2, 1)
+                     for calls in (norm_calls(batch=b), ffhq_norm_calls(batch=b))
+                     for _, (_, h, w, c), size in calls})
+
+
+@pytest.mark.parametrize("carried", [True, False], ids=["carried", "recomputed"])
+@pytest.mark.parametrize("n,s,c,itemsize", BWD_SHAPES,
+                         ids=[f"n{n}_s{s}_c{c}_{'f32' if z == 4 else 'bf16'}"
+                              for n, s, c, z in BWD_SHAPES])
+def test_bwd_plan_covers_every_row_once_within_the_blocks_limits(n, s, c, itemsize, carried):
+    plan = gn.gn_bwd_plan(n, s, c, 32, itemsize, SMS, carried)
+    vec = 16 // itemsize
+    assert plan.tx * vec == c and plan.ty >= 1 and plan.tx * plan.ty <= 512
+    assert (plan.chunks - 1) * plan.rows < s <= plan.chunks * plan.rows
+    assert plan.smem == (2 * plan.ty * c + plan.ty) * 4 <= gn.MAX_SHARED - 12 * 1024
+    assert plan.reads == (2 if carried else 3)
+    if plan.path == "cluster":
+        # one cluster of at most 8 blocks a sample, each at most 128 rows
+        # where the statistics are carried; no scratch
+        assert plan.chunks <= gn.CLUSTER_BLOCKS and plan.scratch == 0 and plan.ty <= plan.rows
+        assert plan.rows <= 128 or not carried
+        return
+    assert plan.path == "two-pass" and carried and -(-s // gn.CLUSTER_BLOCKS) > 128
+    # at least one unrolled step of every thread row; the apply pass's merge
+    # takes a thread a group
+    assert plan.rows >= 2 * plan.ty and plan.tx * plan.ty >= 32 and plan.chunks <= 1024
+    # the chunk sums
+    assert plan.scratch == 2 * n * plan.chunks * 32
+    assert n * plan.chunks < 4 * SMS + n
+
+
+@pytest.mark.parametrize("calls", [norm_calls, ffhq_norm_calls], ids=["imagenet", "ffhq"])
+def test_bwd_small_calls_take_the_one_launch_path(calls):
+    """At batch 8, with the statistics carried where K1's forward plan keeps
+    them (its two-pass path), every call of 32 px or less takes the
+    one-launch cluster path (ImageNet's 60 of 101 norms, FFHQ's 36 of 65)
+    and so does a call whose forward took the one-launch path (FFHQ's two
+    64 px norms of 128 channels); every other call of 64 px and up takes
+    the two launches."""
+    cluster = 0
+    for _, (n, h, w, c), size in calls():
+        carried = gn.gn_plan(n, h * w, c, 32, size, SMS).path == "two-pass"
+        plan = gn.gn_bwd_plan(n, h * w, c, 32, size, SMS, carried)
+        assert (plan.path == "cluster") == (h <= 32 or not carried), (h, c, plan.path)
+        assert h > 32 or plan.path == "cluster"
+        cluster += plan.path == "cluster"
+    assert cluster == {101: 60, 65: 38}[len(calls())]
+
+
+def test_bwd_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="multiple"):
+        gn.gn_bwd_plan(2, 16, 100, 32, 2, SMS, True)
+    with pytest.raises(ValueError, match="512"):
+        gn.gn_bwd_plan(2, 16, 8192, 32, 2, SMS, True)
+    with pytest.raises(ValueError, match="without the statistics"):
+        gn.gn_bwd_plan(8, 65536, 512, 32, 2, SMS, False, path="two-pass")
+    with pytest.raises(ValueError, match="no fast path"):
+        gn.gn_bwd_plan(8, 64, 512, 32, 2, SMS, True, path="fast")
+    # the two-pass merge needs a thread a group: 64 groups of 64 f32 channels
+    # make blocks of 16 x 16 threads, enough; 1024 groups do not fit
+    assert gn.gn_bwd_plan(2, 4096, 64, 64, 4, SMS, True).path == "two-pass"
+    with pytest.raises(ValueError, match="groups"):
+        gn.gn_bwd_plan(2, 4096, 1024, 1024, 4, SMS, True)
+    # either path may be forced where it can run (to compare the two)
+    assert gn.gn_bwd_plan(8, 64, 512, 32, 2, SMS, True, path="two-pass").path == "two-pass"
+    assert gn.gn_bwd_plan(8, 65536, 512, 32, 2, SMS, True, path="cluster").path == "cluster"
+    assert gn.gn_bwd_plan(8, 65536, 512, 32, 2, SMS, False).path == "cluster"

@@ -141,3 +141,136 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         gn.groupnorm_silu_cuda(x, torch.ones(64), torch.zeros(64))
     with pytest.raises(ValueError, match="unsupported device"):
         gn.groupnorm_silu(x.to("meta"), torch.ones(64), torch.zeros(64))
+
+
+# -- the backward kernel's plain twin and the backward's dispatch ----------------
+
+BWD_SHAPES = [(3, 5, 7, 64), (2, 8, 8, 128), (2, 16, 16, 256), (2, 32, 32, 64)]
+BWD_CASES = [(s, silu, dt, eps) for s in BWD_SHAPES for silu in (True, False)
+             for dt in ("float32", "bfloat16") for eps in (1e-5, 1e-6)]
+BWD_IDS = [f"{s[1]}x{s[2]}x{s[3]}-{'silu' if silu else 'nosilu'}-{dt}-{eps:g}"
+           for s, silu, dt, eps in BWD_CASES]
+
+
+def _bwd_case(shape, dtype, seed=11):
+    x, g, b = _case(seed, shape, mean=0.5)
+    dy = np.random.default_rng(seed + 1).normal(size=shape).astype(F32)
+    if dtype == "bfloat16":
+        # values bf16 holds exactly, so both sides start from the same inputs
+        x = np.asarray(torch.as_tensor(x).bfloat16().float())
+        dy = np.asarray(torch.as_tensor(dy).bfloat16().float())
+    return x, dy, g, b
+
+
+def _assert_close_in(got, want, dtype):
+    """f32: the same formula in another order of sums. bf16: both compute in
+    f32 and round once, so two bf16 ulps of the magnitude."""
+    got, want = np.asarray(got, F32), np.asarray(want, F32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        assert np.abs(got - want).max() <= 2 * ulp
+
+
+@pytest.mark.parametrize("shape,silu,dtype,eps", BWD_CASES, ids=BWD_IDS)
+def test_backward_plain_matches_autograd_of_the_plain_version(shape, silu, dtype, eps):
+    x, dy, g, b = _bwd_case(shape, dtype)
+    dt = getattr(torch, dtype)
+    xt = torch.as_tensor(x).to(dt).requires_grad_(True)
+    dyt = torch.as_tensor(dy).to(dt)
+    gt, bt = torch.as_tensor(g), torch.as_tensor(b)
+    y = gn.groupnorm_silu_plain(xt, gt, bt, 32, eps, silu)
+    (want,) = torch.autograd.grad(y, xt, dyt)
+    got = gn.groupnorm_silu_backward_plain(xt.detach(), dyt, gt, bt, 32, eps, silu)
+    assert got.dtype == dt and got.shape == xt.shape
+    _assert_close_in(got.float(), want.float(), dtype)
+
+
+@pytest.mark.parametrize("shape,silu,dtype,eps", BWD_CASES, ids=BWD_IDS)
+def test_backward_plain_matches_jax_vjp_of_the_reference(shape, silu, dtype, eps):
+    x, dy, g, b = _bwd_case(shape, dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    _, pull = jax.vjp(lambda a: pg._reference(a, jnp.asarray(g), jnp.asarray(b), 32, eps, silu),
+                      jnp.asarray(x, jdt))
+    (want,) = pull(jnp.asarray(dy, jdt))
+    dt = getattr(torch, dtype)
+    got = gn.groupnorm_silu_backward_plain(torch.as_tensor(x).to(dt), torch.as_tensor(dy).to(dt),
+                                           torch.as_tensor(g), torch.as_tensor(b), 32, eps, silu)
+    _assert_close_in(got.float().numpy(), np.asarray(want, F32), dtype)
+
+
+@pytest.mark.parametrize("is_cuda,need,route", [
+    (True, (True, False, False), "kernel"),
+    (True, (True, True, False), "plain"),
+    (True, (True, False, True), "plain"),
+    (True, (False, True, True), "plain"),
+    (False, (True, False, False), "plain"),
+    (False, (True, True, True), "plain"),
+])
+def test_backward_route(is_cuda, need, route):
+    """The kernel where x lies on a card and only dx is asked for; plain
+    autograd on the CPU and wherever dgamma or dbeta is asked for."""
+    assert gn.backward_route(is_cuda, need) == route
+
+
+def _function_grads(x, g, b, need, ct, silu=True):
+    ts = [torch.as_tensor(v).requires_grad_(r) for v, r in zip((x, g, b), need)]
+    y = gn._GroupNormSiLU.apply(*ts, 32, 1e-5, silu)
+    return torch.autograd.grad(y, [t for t in ts if t.requires_grad], ct)
+
+
+def test_backward_on_the_cpu_stays_plain_and_is_counted(monkeypatch, tmp_path):
+    """On the CPU every backward is plain autograd: the kernel wrapper is not
+    reached, ``bwd_launches`` does not move, and the tracer counts
+    ``gn_bwd.plain`` once per pullback inside its span."""
+    from free_hunch_tpu_torch.utils import profiling
+    monkeypatch.setattr(gn, "groupnorm_silu_cuda", gn.groupnorm_silu_plain)
+    monkeypatch.setattr(gn, "groupnorm_silu_backward_cuda",
+                        lambda *a, **k: pytest.fail("the kernel wrapper was reached"))
+    x, g, b = _case(7, (2, 4, 4, 64))
+    ct = torch.as_tensor(np.random.default_rng(8).normal(size=x.shape).astype(F32))
+    before = gn.bwd_launches
+    with profiling.trace(str(tmp_path), device="cpu"):
+        for need in ((True, False, False), (True, True, False)):
+            _function_grads(x, g, b, need, ct)
+    snap = profiling.snapshot()
+    assert gn.bwd_launches == before
+    assert snap["counts"].get("gn_bwd.plain") == 2 and "gn_bwd.kernel" not in snap["counts"]
+    assert snap["calls"]["groupnorm_silu_backward"] == 2
+
+
+def test_backward_kernel_branch_hands_the_kernel_the_forward_state(monkeypatch, tmp_path):
+    """The kernel branch of the backward (``backward_route`` says "kernel")
+    gives the wrapper x, the cotangent, gamma, beta, the norm's settings and
+    the forward's statistics, and returns its dx for x alone; with dgamma
+    asked for, the same call takes plain autograd instead."""
+    from free_hunch_tpu_torch.utils import profiling
+    monkeypatch.setattr(gn, "groupnorm_silu_cuda", gn.groupnorm_silu_plain)
+    monkeypatch.setattr(gn, "backward_route",
+                        lambda is_cuda, need: "kernel" if tuple(need) == (True, False, False)
+                        else "plain")
+    seen = []
+
+    def wrapper(x, dy, gamma, beta, groups, eps, apply_silu, stats=None):
+        seen.append((groups, eps, apply_silu, stats))
+        return gn.groupnorm_silu_backward_plain(x, dy, gamma, beta, groups, eps, apply_silu)
+    monkeypatch.setattr(gn, "groupnorm_silu_backward_cuda", wrapper)
+    x, g, b = _case(9, (2, 4, 4, 64))
+    ct = torch.as_tensor(np.random.default_rng(10).normal(size=x.shape).astype(F32))
+    with profiling.trace(str(tmp_path), device="cpu"):
+        (dx,) = _function_grads(x, g, b, (True, False, False), ct, silu=False)
+        dx2, _ = _function_grads(x, g, b, (True, True, False), ct, silu=False)
+    snap = profiling.snapshot()
+    assert seen == [(32, 1e-5, False, None)]
+    assert snap["counts"] == {"gn_bwd.kernel": 1, "gn_bwd.plain": 1}
+    want = gn.groupnorm_silu_backward_plain(torch.as_tensor(x), ct, torch.as_tensor(g),
+                                            torch.as_tensor(b), 32, 1e-5, False)
+    torch.testing.assert_close(dx, want, rtol=0, atol=0)
+    torch.testing.assert_close(dx2, want, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros(2, 4, 4, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.groupnorm_silu_backward_cuda(x, x, torch.ones(64), torch.zeros(64))
