@@ -60,7 +60,6 @@ import numpy as np
 import torch
 
 from reference import freehunch as ref_fh
-from reference import unet as ref_unet
 
 NUMBERS = ("start", "unet", "cov", "cg", "cg_floor", "guide", "heun")
 GUARD = 0.2          # the vjp guard's threshold (denoiser_mean_error_threshold)
@@ -81,17 +80,17 @@ def _rel(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 class Judge:
-    """The reference side of a cell, for one seed: its weights, basis,
-    schedule and probes."""
+    """The reference side of a cell, for one seed: its denoiser family
+    (``fam``, ``reference/<family>.py``), weights, basis, schedule and
+    probes."""
 
-    def __init__(self, arch: ref_unet.Arch, p32: Dict[str, torch.Tensor], prior: dict,
+    def __init__(self, fam, arch, p32: Dict[str, torch.Tensor], prior: dict,
                  steps: int, check: dict, gradient: str, seed: int, device):
-        self.arch, self.p, self.gradient = arch, p32, gradient
+        self.fam, self.arch, self.p, self.gradient = fam, arch, p32, gradient
         self.rows = check["rows"]
         self.control_algebra = check["control_algebra"]
         self.control_torso = check["control_torso"]
-        self.grid = ref_unet.sigma_grid()
-        self.sched = ref_fh.schedule(steps, self.grid)
+        self.sched = ref_fh.schedule(steps, fam.snap_grid(arch), fam.sigma_range(arch))
         self.basis = ref_fh.Basis(prior["name"])
         self.seed, self.device = seed, device
 
@@ -218,6 +217,34 @@ class Judge:
         if x_prime is not None:
             worst = max(worst, float(torch.max(_rel(x_prime, pred, pred - x_hat.float()))))
         return worst
+
+
+def denoise_rows(fam, p, arch, x: torch.Tensor, sigma: float, rows: int,
+                 pullbacks=(), rounding=None):
+    """The family ``fam``'s reference denoiser before its clip (D = clip(pre,
+    -1, 1)) and, for each (cotangent c, judged D) of ``pullbacks``, the
+    pullback of c through D with the clip's gradient where the judged D lies
+    strictly inside [-1, 1] (which pixels a D clips is the judged D's to
+    say, and the unet number judges that D); in blocks of ``rows`` samples
+    (each block's graph freed before the next). ``rounding`` goes to
+    ``fam.preclamp``. Returns (pre, [pullbacks])."""
+    outs, pulls = [], [[] for _ in pullbacks]
+    for s in range(0, x.shape[0], rows):
+        xb = x[s:s + rows].detach()
+        if not pullbacks:
+            with torch.no_grad():
+                outs.append(fam.preclamp(p, arch, xb, sigma, rounding))
+            continue
+        xb = xb.clone().requires_grad_(True)
+        with torch.enable_grad():
+            pre = fam.preclamp(p, arch, xb, sigma, rounding)
+            for j, (ct, judged) in enumerate(pullbacks):
+                m = (torch.abs(judged[s:s + rows]) < 1.0).to(pre.dtype)
+                (g,) = torch.autograd.grad(pre, xb, ct[s:s + rows] * m,
+                                           retain_graph=j < len(pullbacks) - 1)
+                pulls[j].append(g)
+        outs.append(pre.detach())
+    return torch.cat(outs), [torch.cat(g) for g in pulls]
 
 
 def torso_band(D, pre) -> torch.Tensor:

@@ -39,7 +39,6 @@ import inputs  # noqa: E402
 import spec  # noqa: E402
 import weights as weights_mod  # noqa: E402
 from reference import freehunch as ref_fh  # noqa: E402
-from reference import unet as ref_unet  # noqa: E402
 
 
 def control_torso(ctl: harness.Program, judge: compare.Judge, st, dev):
@@ -51,8 +50,8 @@ def control_torso(ctl: harness.Program, judge: compare.Judge, st, dev):
     x = st.x_hat.to(dev).clone().requires_grad_(vjp)
     with torch.enable_grad() if vjp else torch.no_grad():
         if judge.control_torso == "fp8":
-            D = torch.clamp(ref_unet.preclamp(judge.p, judge.arch, x, sigma, judge.grid,
-                                              rounding=ref_unet.fp8), -1.0, 1.0)
+            D = torch.clamp(judge.fam.preclamp(judge.p, judge.arch, x, sigma,
+                                               rounding=ref_fh.fp8), -1.0, 1.0)
         else:
             D, _ = ctl.precond(x, sigma)
     return D, x
@@ -121,14 +120,15 @@ def seed_readings(cell, seed, program, ctl, images, dev, with_control: bool,
     default; ``control`` is that one's) and with ``faults`` the planted CG
     faults'."""
     cfg, tr = cell["config"], cell["traffic"]
-    arch = ref_unet.arch_of(cfg["model"])
-    w = weights_mod.make(arch, seed, dev, cfg["precision"])
+    fam = spec.reference(cfg)
+    arch = fam.arch_of(cfg["model"])
+    w = weights_mod.make(fam.param_shapes(arch), seed, dev, cfg["precision"])
     program.model.load_state_dict(w)
     if with_control and ctl is not None:
         ctl.model.load_state_dict(w)
     p32 = weights_mod.float32(w)
     del w
-    judge = compare.Judge(arch, p32, cfg["prior"], tr["steps"], cell["check"],
+    judge = compare.Judge(fam, arch, p32, cfg["prior"], tr["steps"], cell["check"],
                           tr["mechanism"]["guidance_gradient"], seed, dev)
     algebras = tuple(algebras or (judge.control_algebra,))
     steps = harness.sampled_steps(seed, judge.sched, cell["check"]["bands"])
@@ -200,9 +200,10 @@ def main(argv=None):
     dev = torch.device(args.device)
     cell = spec.cell(args.workload)
     cfg = cell["config"]
-    arch = ref_unet.arch_of(cfg["model"])
+    fam = spec.reference(cfg)
     images = inputs.bundled_images(spec.ROOT / ".bench_cache" / "data")
-    w = weights_mod.make(arch, args.seeds[0], dev, cfg["precision"])
+    w = weights_mod.make(fam.param_shapes(fam.arch_of(cfg["model"])), args.seeds[0], dev,
+                         cfg["precision"])
     program = harness.Program(cell, w, dev)
     ctl = harness.Program(cell, w, dev, quant="int8") \
         if args.controls and cell["check"]["control_torso"] == "int8" else None

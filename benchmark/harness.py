@@ -3,20 +3,22 @@ the correctness check.
 
 The system under test is ``free_hunch_tpu_torch``'s guided sampler as
 ``generate_conditional`` runs it: ``samplers.edm.sample_loop`` driving Free Hunch
-(``choose_conditioning_mechanism("online_covariance")``) over the iDDPM
-linear preconditioner (``models.loading.wrap_precond``) around the ADM
-UNet (``models.unet.create_model``, the configured torso type, remat),
-with the operator from ``operators.get_operator``. The benchmark makes
-the weights, images, operators, measurements and noise from ``--seed``
-and hands them in.
+(``choose_conditioning_mechanism("online_covariance")``) over the
+configuration's denoiser, which its family's ``program/<family>.py``
+builds (the ``adm`` family: the ADM UNet behind the iDDPM linear
+preconditioner), with the operator from ``operators.get_operator``. The
+benchmark makes the weights, images, operators, measurements and noise
+from ``--seed`` and hands them in.
 
 The window is a closed loop of whole sampling runs, back to back, each
 from sigma_max with fresh inputs. The harness wraps the mechanism it hands
 ``sample_loop`` (the sampler-guidance boundary): it counts the guided calls,
 reads the program's CG counters from the state each call returns, copies
 the first run's start and sampled calls to pinned host memory for the check,
-and at the first call that starts after ``seconds`` stops the loop,
-synchronises and closes the window.
+and at the first call that starts after ``seconds`` synchronises and
+closes the window. A later run stops there; the first run, if the window
+closes inside it, goes on untimed to its end, so that the check finds
+every step it samples.
 """
 from __future__ import annotations
 
@@ -34,7 +36,6 @@ import spec
 import devtrace
 import weights as weights_mod
 from reference import freehunch as ref_fh
-from reference import unet as ref_unet
 
 SPANS = ("bench.denoise", "bench.call", "groupnorm_silu_backward")
 
@@ -62,25 +63,20 @@ def sampled_steps(seed: int, sched: dict, bands) -> List[int]:
 # -- the program ------------------------------------------------------------------
 
 class Program:
-    """The system under test for one cell on ``device``: the model built
-    with the configuration's ``program`` options (``options`` overrides
-    them: the control's int8 torso)."""
+    """The system under test for one cell on ``device``: the denoiser its
+    family's program module builds, with the configuration's ``program``
+    options (``options`` overrides them: the control's int8 torso)."""
 
     def __init__(self, cell: dict, w: Dict[str, torch.Tensor], device, **options):
         from free_hunch_tpu_torch import use_full_f32
-        from free_hunch_tpu_torch.models import loading
-        from free_hunch_tpu_torch.models.unet import create_model
         from free_hunch_tpu_torch.samplers import edm
         cfg, tr = cell["config"], cell["traffic"]
         self.cfg, self.tr, self.device = cfg, tr, device
+        self.res = spec.reference(cfg).arch_of(cfg["model"]).image_size
         use_full_f32()
-        self.model_args = dict(cfg["model"])
-        with torch.device(device):
-            model = create_model(**self.model_args, dtype=weights_mod.dtype(
-                cfg["precision"]["torso"]), **dict(cfg["program"], **options))
-        model.load_state_dict(w)
-        self.model = model.eval().requires_grad_(False)
-        self.precond = loading.wrap_precond(model, self.model_args, "linear")
+        family = spec.program(cfg)
+        self.model, self.precond = family.build(cfg, w, device, **options)
+        self.norms = family.norm_modules(self.model)
         self.edm = edm
         self.xs, self.sigma0 = edm.prepare_schedule(
             round_sigma=self.precond.round_sigma, net_sigma_min=self.precond.sigma_min,
@@ -98,7 +94,7 @@ class Program:
     def mechanism(self, run: inputs.Run):
         from free_hunch_tpu_torch.guidance import choose_conditioning_mechanism
         from free_hunch_tpu_torch.operators import get_operator
-        op, res = self.tr["operator"], self.model_args["image_size"]
+        op, res = self.tr["operator"], self.res
         prior = self.cfg["prior"]
         return choose_conditioning_mechanism("online_covariance")(
             forward_operator=get_operator(op["name"], in_shape=(1, 3, res, res),
@@ -161,8 +157,9 @@ class _Step:
 
 class Captures:
     """Copies of the window's first run (run 0): its first call (the start)
-    and its sampled steps. ``run_seconds`` holds a whole run of every cell,
-    so the check always finds them whole; later runs copy nothing."""
+    and its sampled steps. Run 0 always ends (``Boundary.close`` lets it
+    finish untimed where the window closes inside it), so the check finds
+    every sampled step whole; later runs copy nothing."""
 
     def __init__(self, steps: List[int], n_steps: int, b: int, shape, K: int, pin: bool):
         d = int(np.prod(shape))
@@ -232,13 +229,14 @@ class Captures:
 
 class Boundary:
     """The mechanism handed to ``sample_loop``: counts guided calls and the
-    program's CG counters, copies the sampled calls, ends the run at a
-    deadline, and in a traced run times each call (synchronised) and
-    starts and stops the profiler."""
+    program's CG counters, copies the sampled calls, closes the window at a
+    deadline (``close``), and in a traced run times each call
+    (synchronised) and starts and stops the profiler."""
 
     def __init__(self, mech, captures: Optional[Captures], device):
         self.mech, self.captures, self.device = mech, captures, device
         self.deadline = None
+        self.t_close, self.peak = None, 0
         self.sync = False
         self.calls = self.cg_iters = self.host_syncs = 0
         self.call_s: List[float] = []
@@ -252,9 +250,23 @@ class Boundary:
         self.in_run = 0
         return self.mech.init_state(batch, shape)
 
+    def close(self):
+        """The deadline has passed: synchronise and read the window's end
+        and the peak memory, once. A later run stops here (``Stop``); the
+        first run (run 0) goes on untimed, uncounted, so that the check
+        finds every step it samples."""
+        if self.t_close is None:
+            _sync(self.device)
+            self.t_close = time.perf_counter()
+            if torch.device(self.device).type == "cuda":
+                self.peak = torch.cuda.max_memory_allocated()
+        if self.captures is None or self.captures.run != 0:
+            raise Stop
+        self.deadline = None
+
     def __call__(self, denoise, x_t, y, sigma, state):
         if self.deadline is not None and time.perf_counter() >= self.deadline:
-            raise Stop
+            self.close()
         c = self.in_run
         for k, (first, n, prof, label) in enumerate(self.stretches):
             if c == first + n:
@@ -271,19 +283,21 @@ class Boundary:
                 prof.start()
         if self.captures is not None:
             self.captures.before(c, x_t, state)
-        if self.sync:
+        timed = self.sync and self.t_close is None
+        if timed:
             _sync(self.device)
             t0 = time.perf_counter()
         with torch.profiler.record_function("bench.call"):
             x0, st = self.mech(denoise, x_t, y, sigma, state)
-        if self.sync:
+        if timed:
             _sync(self.device)
             self.call_s.append(time.perf_counter() - t0)
         if self.captures is not None:
             self.captures.after(c, x0, st)
-        self.calls += 1
-        self.cg_iters += int(st.cg_niter)
-        self.host_syncs += int(st.cg_host_syncs)
+        if self.t_close is None:
+            self.calls += 1
+            self.cg_iters += int(st.cg_niter)
+            self.host_syncs += int(st.cg_host_syncs)
         self.in_run += 1
         return x0, st
 
@@ -301,16 +315,15 @@ def _sync(device):
 # -- norm byte counters for the traced stretch -------------------------------------
 
 class NormBytes:
-    """Forward hooks on the program's GroupNorm modules while a stretch is
-    on: the bytes of each K1 call (x read, y written) and of each pullback
-    through a norm (x and dy read, dx written, counted when its gradient
-    arrives), by stretch."""
+    """Forward hooks on the program's norm modules (its family's
+    ``norm_modules``) while a stretch is on: the bytes of each K1 call (x
+    read, y written) and of each pullback through a norm (x and dy read, dx
+    written, counted when its gradient arrives), by stretch."""
 
-    def __init__(self, model):
+    def __init__(self, modules):
         self.label = None
         self.counts: Dict[str, Dict[str, int]] = {}
-        self.hooks = [m.register_forward_hook(self._hook) for m in model.modules()
-                      if type(m).__name__ == "GroupNorm32"]
+        self.hooks = [m.register_forward_hook(self._hook) for m in modules]
 
     def switch(self, label, on):
         self.label = label if on else None
@@ -366,13 +379,14 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     """Run ``cell`` for ``seconds`` from ``seed``; returns the result line's
     fields and the numbers compared."""
     cfg, tr = cell["config"], cell["traffic"]
-    arch = ref_unet.arch_of(cfg["model"])
+    fam = spec.reference(cfg)
+    arch = fam.arch_of(cfg["model"])
     dev = torch.device(device)
     pin = dev.type == "cuda"
     phases = {"start": time.time() - t_start}
     images = inputs.bundled_images(cache_dir or spec.ROOT / ".bench_cache")
     phases["images"] = time.time() - t_start
-    w = weights_mod.make(arch, seed, dev, cfg["precision"])
+    w = weights_mod.make(fam.param_shapes(arch), seed, dev, cfg["precision"])
     _sync(dev)
     phases["weights"] = time.time() - t_start
     program = Program(cell, w, dev)
@@ -381,14 +395,14 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
     phases["model"] = time.time() - t_start
     res = arch.image_size
     batch = tr["batch"]
-    steps = sampled_steps(seed, ref_fh.schedule(tr["steps"], ref_unet.sigma_grid()),
-                          cell["check"]["bands"])
+    steps = sampled_steps(seed, ref_fh.schedule(tr["steps"], fam.snap_grid(arch),
+                                                fam.sigma_range(arch)), cell["check"]["bands"])
     captures = Captures(steps, tr["steps"], batch, (3, res, res), program.capacity, pin)
     phases["captures"] = time.time() - t_start
     run0 = inputs.Run(seed, 0, tr, images, dev, arch.image_size)
     phases["warm_calls"] = warm_up(program, run0, captures)
     phases["warm_up"] = time.time() - t_start
-    norms = NormBytes(program.model) if traced else None
+    norms = NormBytes(program.norms) if traced else None
     if traced:   # the profiler's first use in a process starts slowly: not in the stretch
         with torch.profiler.profile(activities=profiler_activities(pin)):
             torch.ones(1, device=dev).add_(1)
@@ -414,13 +428,13 @@ def run_cell(cell: dict, seed: int, seconds: float, traced: bool, t_start: float
             break
         captures.end(x)
         failed += int((~torch.isfinite(x.reshape(batch, -1)).all(dim=1)).sum())
+        if boundary.t_close is not None:   # run 0, finished after the window
+            break
         runs.append(r)
         r += 1
-    _sync(dev)
-    window_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if pin else 0
+    window_s = boundary.t_close - t0
     out = dict(window_s=window_s, setup_s=setup_s, calls=boundary.calls, runs_started=r + 1,
-               runs_done=len(runs), failed=failed, batch=batch, peak_bytes=peak,
+               runs_done=len(runs), failed=failed, batch=batch, peak_bytes=boundary.peak,
                cg_iters=boundary.cg_iters, host_syncs=boundary.host_syncs,
                call_s=boundary.call_s, capacity=program.capacity,
                calls_per_run=calls_per_run(tr["steps"]), setup_phases=phases)
@@ -465,8 +479,10 @@ def check(cell: dict, seed: int, captures: Captures, images, arch, dev) -> Dict[
     """The numbers compared: the program's copies of the first run's start
     and of each sampled step, judged by the reference."""
     cfg, tr = cell["config"], cell["traffic"]
-    p32 = weights_mod.float32(weights_mod.make(arch, seed, dev, cfg["precision"]))
-    judge = compare.Judge(arch, p32, cfg["prior"], tr["steps"], cell["check"],
+    fam = spec.reference(cfg)
+    p32 = weights_mod.float32(weights_mod.make(fam.param_shapes(arch), seed, dev,
+                                               cfg["precision"]))
+    judge = compare.Judge(fam, arch, p32, cfg["prior"], tr["steps"], cell["check"],
                           tr["mechanism"]["guidance_gradient"], seed, dev)
     nums: Dict[str, float] = {}
     run = inputs.Run(seed, 0, tr, images, dev, arch.image_size)
@@ -488,12 +504,18 @@ def start_number(captures: Captures, run: inputs.Run, judge: compare.Judge, prio
 
 
 def prior_diag(prior: dict, arch, dev) -> torch.Tensor:
-    """The covariance's initial diagonal: the DCT variances (a raw asset of
-    the repository) or init_denoiser_variance (1) everywhere."""
+    """The covariance's initial diagonal: the first d DCT variances of a raw
+    asset of the repository, as the program takes them (a smaller image
+    truncates the 256 px prior; an asset shorter than d raises), or
+    init_denoiser_variance (1) everywhere."""
     d = 3 * arch.image_size ** 2
     if prior["name"] == "dct_diagonal":
-        v = np.load(inputs.ASSETS / f"dct_variance_{prior['dataset']}.npz")["dct_variance"]
-        return torch.as_tensor(np.asarray(v, np.float32).reshape(-1)[:d], device=dev)
+        name = f"dct_variance_{prior['dataset']}.npz"
+        v = np.asarray(np.load(inputs.ASSETS / name)["dct_variance"], np.float32).reshape(-1)
+        if v.size < d:
+            raise ValueError(f"{name} holds {v.size} variances; a {arch.image_size} px "
+                             f"image has {d} dimensions")
+        return torch.as_tensor(v[:d], device=dev)
     return torch.ones((d,), device=dev)
 
 
@@ -511,8 +533,8 @@ def judge_step(judge: compare.Judge, st: _Step, run: inputs.Run, dev, extra=()):
     vjp = judge.gradient != "covariance"
     cots = ([(ref_fh.mat_of(run.op, u), after.prev_mean)] if vjp else []) + list(extra)
     with ref_fh.tf32(False):
-        pre, pulls = ref_unet.denoise_rows(judge.p, judge.arch, x_t, sigma, judge.grid,
-                                           judge.rows, cots)
+        pre, pulls = compare.denoise_rows(judge.fam, judge.p, judge.arch, x_t, sigma,
+                                          judge.rows, cots)
     out = dict(D=after.prev_mean, cov=after.cov, u=u, x0=st.d1.to(dev), pre_ref=pre,
                vjp_ref=pulls[0] if vjp else None)
     nums = judge.call(x_t, sigma, before, run.y, run.op, out)

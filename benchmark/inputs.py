@@ -5,7 +5,9 @@ noise, the initial noise.
 The clean images are the repository's bundled 256 px PNGs
 (``data/imagenet/00000``), decoded here with zlib and numpy (once a
 checkout: the pixels are cached beside the other caches); each run takes
-``batch`` of them, chosen and ordered by (seed, run). Everything else is
+``batch`` of them, chosen and ordered by (seed, run), at the
+configuration's resolution: average-pooled below 256 px, bilinearly
+upsampled (``F.interpolate``, ``align_corners=False``) above it. Everything else is
 drawn from a generator seeded by (seed, run, purpose), so one seed gives
 the same run inputs every time, and every run of the window fresh ones.
 """
@@ -100,10 +102,11 @@ def generator(seed: int, run: int, purpose: str, device="cpu") -> torch.Generato
 
 
 class Run:
-    """The inputs of run ``run`` of ``seed``: ``clean``, ``y``, ``noise``
-    (the sampler's initial noise, unscaled) and ``op``, the reference's
-    operator of the run (``reference/operators/<name>.py``), whose
-    ``program`` holds what the program's operator is built from."""
+    """The inputs of run ``run`` of ``seed`` at ``res`` px: ``clean`` (the
+    bundled images pooled down or bilinearly upsampled to ``res``), ``y``,
+    ``noise`` (the sampler's initial noise, unscaled) and ``op``, the
+    reference's operator of the run (``reference/operators/<name>.py``),
+    whose ``program`` holds what the program's operator is built from."""
 
     def __init__(self, seed: int, run: int, traffic: dict, images: np.ndarray, device,
                  res: int = 256):
@@ -113,8 +116,11 @@ class Run:
         if len(pick) < b:
             raise ValueError(f"batch {b} needs {b} images; {images.shape[0]} are bundled")
         clean = torch.as_tensor(images[pick])
-        if res != clean.shape[-1]:    # a smaller configuration sees the images pooled
+        if res < clean.shape[-1]:
             clean = torch.nn.functional.avg_pool2d(clean, clean.shape[-1] // res)
+        elif res > clean.shape[-1]:
+            clean = torch.nn.functional.interpolate(clean, size=(res, res), mode="bilinear",
+                                                    align_corners=False)
         self.clean = clean.to(device)
         self.noise = torch.randn((b, 3, res, res), generator=generator(seed, run, "noise", device),
                                  device=device)

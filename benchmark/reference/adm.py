@@ -1,18 +1,24 @@
-"""The ADM UNet of guided-diffusion in plain PyTorch, float32 throughout,
-and the iDDPM linear preconditioner around it.
+"""The ``adm`` denoiser family's reference: the ADM UNet of
+guided-diffusion in plain PyTorch, float32 throughout, and the iDDPM
+linear preconditioner around it.
 
 ``Arch`` holds a configuration's published shapes; ``blocks`` lays the
 network out as a list of layer specs, which the forward pass walks and
-which ``benchmark/flops.py`` counts operations and bytes from. Parameter
-names are those of the published state dict (``input_blocks.1.0.
-in_layers.0.weight``, ...), so one dict of seeded weights serves the
-program and this reference.
+the frozen counts (``forward_flops``, ``input_backward_flops``,
+``norm_inputs``) count from. Parameter names are those of the published
+state dict (``input_blocks.1.0.in_layers.0.weight``, ...), so one dict of
+seeded weights serves the program and this reference.
+
+The family interface (``benchmark/README.md``, "Adding a denoiser
+family"): ``arch_of``, ``param_shapes``, ``preclamp``, ``snap_grid``,
+``sigma_range``, ``forward_flops``, ``input_backward_flops``,
+``norm_inputs``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 
 GROUPS = 32
 EPS = 1e-5
+M_STEPS = 1000
 CHANNEL_MULT = {512: (0.5, 1, 1, 2, 2, 4, 4), 256: (1, 1, 2, 2, 4, 4),
                 128: (1, 1, 2, 3, 4), 64: (1, 2, 3, 4)}
 
@@ -47,6 +54,9 @@ def arch_of(model: dict) -> Arch:
         raise ValueError("only unconditional models are laid out")
     if model.get("use_new_attention_order", False):
         raise ValueError("only the legacy attention order is laid out")
+    if model.get("noise_schedule", "linear") != "linear" or \
+            int(model.get("diffusion_steps", M_STEPS)) != M_STEPS:
+        raise ValueError(f"only the linear {M_STEPS}-step iDDPM grid is laid out")
     res = int(model["image_size"])
     mult = model.get("channel_mult") or CHANNEL_MULT[res]
     if isinstance(mult, str):
@@ -112,45 +122,44 @@ def blocks(a: Arch) -> dict:
     return {"input": inp, "middle": mid, "output": out, "final_ch": ch}
 
 
-def param_shapes(a: Arch) -> List[Tuple[str, Tuple[int, ...]]]:
-    """Every parameter's name and shape, in a fixed order."""
+def param_shapes(a: Arch) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """Every parameter's name, shape and init kind, in a fixed order (the
+    order ``benchmark/weights.py`` draws them in). Kinds: ``fan_in`` a
+    convolution or linear weight, ``zero_init`` one the published model
+    initialises to zero (each ResBlock's last conv, attention's proj_out,
+    the final conv), ``norm_scale`` and ``norm_shift`` a GroupNorm's affine,
+    ``bias``."""
     mc, ted = a.num_channels, 4 * a.num_channels
-    out = [("time_embed.0.weight", (ted, mc)), ("time_embed.0.bias", (ted,)),
-           ("time_embed.2.weight", (ted, ted)), ("time_embed.2.bias", (ted,))]
+    out = [("time_embed.0.weight", (ted, mc), "fan_in"), ("time_embed.0.bias", (ted,), "bias"),
+           ("time_embed.2.weight", (ted, ted), "fan_in"), ("time_embed.2.bias", (ted,), "bias")]
 
-    def add(name, shape):
-        out.append((name + ".weight", shape))
-        out.append((name + ".bias", (shape[0],)))
+    def add(name, shape, kind="fan_in"):
+        norm = kind == "norm_scale"
+        out.append((name + ".weight", shape, kind))
+        out.append((name + ".bias", (shape[0],), "norm_shift" if norm else "bias"))
 
     lay = blocks(a)
-    for spec in [s for b in lay["input"] for s in b] + lay["middle"] + \
-            [s for b in lay["output"] for s in b]:
+    for spec in _specs(lay):
         n = spec["name"]
         if spec["kind"] == "conv":
             add(n, (spec["cout"], spec["cin"], 3, 3))
         elif spec["kind"] == "res":
             cin, cout = spec["cin"], spec["cout"]
-            add(n + ".in_layers.0", (cin,))
+            add(n + ".in_layers.0", (cin,), "norm_scale")
             add(n + ".in_layers.2", (cout, cin, 3, 3))
             add(n + ".emb_layers.1", (2 * cout if a.use_scale_shift_norm else cout, ted))
-            add(n + ".out_layers.0", (cout,))
-            add(n + ".out_layers.3", (cout, cout, 3, 3))
+            add(n + ".out_layers.0", (cout,), "norm_scale")
+            add(n + ".out_layers.3", (cout, cout, 3, 3), "zero_init")
             if cin != cout:
                 add(n + ".skip_connection", (cout, cin, 1, 1))
         else:
             c = spec["ch"]
-            add(n + ".norm", (c,))
+            add(n + ".norm", (c,), "norm_scale")
             add(n + ".qkv", (3 * c, c, 1))
-            add(n + ".proj_out", (c, c, 1))
-    add("out.0", (lay["final_ch"],))
-    add("out.2", (a.out_channels, lay["final_ch"], 3, 3))
+            add(n + ".proj_out", (c, c, 1), "zero_init")
+    add("out.0", (lay["final_ch"],), "norm_scale")
+    add("out.2", (a.out_channels, lay["final_ch"], 3, 3), "zero_init")
     return out
-
-
-def is_norm(name: str) -> bool:
-    """A GroupNorm affine parameter."""
-    return any(k in name for k in (".in_layers.0.", ".out_layers.0.", ".norm.")) or \
-        name.startswith("out.0.")
 
 
 # -- the forward pass ----------------------------------------------------------
@@ -183,14 +192,6 @@ def _linear(x, w, b):
     if r is not None:
         x, w = r(x), r(w)
     return F.linear(x, w, b)
-
-
-def fp8(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 under a per-tensor scale (abs-max to
-    448), back in t's type: the control's torso operands."""
-    s = torch.clamp(t.detach().abs().amax(), min=1e-30) / 448.0
-    q = (t / s).to(torch.float8_e4m3fn).to(t.dtype) * s
-    return t + (q - t).detach()
 
 
 def _res(x, emb, p, spec, a: Arch):
@@ -243,15 +244,15 @@ def _layer(h, emb, p, spec, a):
 
 
 def unet(p: Dict[str, torch.Tensor], a: Arch, x: torch.Tensor, t: torch.Tensor,
-         lay: Optional[dict] = None, rounding=None) -> torch.Tensor:
+         rounding=None) -> torch.Tensor:
     """The UNet's (N, out_channels, H, W) output for (N, 3, H, W) x at
-    timesteps t; ``p`` holds float32 parameters. ``rounding`` (``fp8``, for
-    the control) rounds the operands of the products the configuration
+    timesteps t; ``p`` holds float32 parameters. ``rounding``
+    (``freehunch.fp8``, for the control) rounds the operands of the products the configuration
     runs in the torso's type (its convs and linears but the final conv,
     attention's weights @ v)."""
     _ROUND[0] = rounding
     try:
-        return _unet(p, a, x, t, lay or blocks(a))
+        return _unet(p, a, x, t, blocks(a))
     finally:
         _ROUND[0] = None
 
@@ -277,15 +278,26 @@ def _unet(p, a: Arch, x, t, lay):
 
 # -- the iDDPM linear preconditioner --------------------------------------------
 
-M_STEPS = 1000
-
-
 def sigma_grid() -> np.ndarray:
     """The linear-beta DDPM schedule's sigmas by reversed index, u[M] = 0
     (float64; the denoiser snaps to their float32 values)."""
     betas = np.concatenate([[0.0], np.linspace(0.0001, 0.02, M_STEPS)])
     alpha_bar = np.cumprod(1.0 - betas)[::-1]
     return np.sqrt((1.0 - alpha_bar) / alpha_bar)
+
+
+GRID = sigma_grid()
+
+
+def snap_grid(a: Arch) -> np.ndarray:
+    """The sigmas the denoiser snaps to (float64): the iDDPM grid."""
+    return GRID
+
+
+def sigma_range(a: Arch) -> Tuple[float, float]:
+    """The denoiser's (sigma_min, sigma_max): the grid's smallest nonzero
+    sigma and its largest."""
+    return float(GRID[M_STEPS - 1]), float(GRID[0])
 
 
 def round_index(sigmas: Sequence[float], grid: np.ndarray) -> np.ndarray:
@@ -295,44 +307,92 @@ def round_index(sigmas: Sequence[float], grid: np.ndarray) -> np.ndarray:
     return np.argmin(np.abs(s[:, None] - g[None, :]), axis=1)
 
 
-def preclamp(p, a: Arch, x: torch.Tensor, sigma: float, grid: np.ndarray,
-             lay: Optional[dict] = None, rounding=None) -> torch.Tensor:
+def preclamp(p, a: Arch, x: torch.Tensor, sigma: float, rounding=None) -> torch.Tensor:
     """x - sigma F(c_in x, c_noise) for a host sigma: the denoiser before
-    its clip to [-1, 1]; x is float32 (N, 3, H, W)."""
+    its clip to [-1, 1]; x is float32 (N, 3, H, W). ``rounding`` as in
+    ``unet``."""
     n = x.shape[0]
     s32 = np.float32(sigma)
-    idx = int(round_index([s32], grid)[0])
+    idx = int(round_index([s32], GRID)[0])
     sig = torch.full((n,), float(s32), dtype=torch.float32, device=x.device)
     c_in = 1.0 / torch.sqrt(sig ** 2 + 1.0)
     c_noise = torch.full((n,), float(M_STEPS - idx), dtype=torch.float32, device=x.device)
-    out = unet(p, a, c_in[:, None, None, None] * x, c_noise, lay, rounding)
+    out = unet(p, a, c_in[:, None, None, None] * x, c_noise, rounding)
     return x - sig[:, None, None, None] * out[:, :3]
 
 
-def denoise_rows(p, a: Arch, x: torch.Tensor, sigma: float, grid: np.ndarray,
-                 rows: int, pullbacks: Sequence[tuple] = (), rounding=None):
-    """The denoiser before its clip (D = clip(pre, -1, 1)) and, for each
-    (cotangent c, judged D) of ``pullbacks``, the pullback of c through D
-    with the clip's gradient where the judged D lies strictly inside
-    [-1, 1] (which pixels a D clips is the judged D's to say, and the unet
-    number judges that D); in blocks of ``rows`` samples (each block's
-    graph freed before the next). ``rounding`` as in ``unet``. Returns
-    (pre, [pullbacks])."""
-    lay = blocks(a)
-    outs, pulls = [], [[] for _ in pullbacks]
-    for s in range(0, x.shape[0], rows):
-        xb = x[s:s + rows].detach()
-        if not pullbacks:
-            with torch.no_grad():
-                outs.append(preclamp(p, a, xb, sigma, grid, lay, rounding))
-            continue
-        xb = xb.clone().requires_grad_(True)
-        with torch.enable_grad():
-            pre = preclamp(p, a, xb, sigma, grid, lay, rounding)
-            for j, (ct, judged) in enumerate(pullbacks):
-                m = (torch.abs(judged[s:s + rows]) < 1.0).to(pre.dtype)
-                (g,) = torch.autograd.grad(pre, xb, ct[s:s + rows] * m,
-                                           retain_graph=j < len(pullbacks) - 1)
-                pulls[j].append(g)
-        outs.append(pre.detach())
-    return torch.cat(outs), [torch.cat(g) for g in pulls]
+# -- the frozen counts ------------------------------------------------------------
+#
+# Operations count two per multiply-add of every product: convolutions,
+# linear layers, attention's two matmuls. Elementwise work, norms and
+# softmax are not counted. They are split by the precision the
+# configuration states for them: the torso's products in its type, the
+# rest in float32 (the time embedding, attention's logits, the final conv).
+# Recomputation (remat) is implementation, not model work: not counted.
+
+def _conv_flops(cin, cout, k, hw_out):
+    return 2 * cin * cout * k * k * hw_out
+
+
+def _specs(lay: dict) -> list:
+    """Every layer spec of ``blocks``, in the forward's order."""
+    return [s for b in lay["input"] for s in b] + lay["middle"] + \
+        [s for b in lay["output"] for s in b]
+
+
+def forward_flops(arch: Arch, torso: str, batch: int = 1) -> Dict[str, float]:
+    """{precision: FLOPs} of one denoiser forward at ``batch``."""
+    f = {"float32": 0, torso: 0}
+    mc, ted = arch.num_channels, 4 * arch.num_channels
+    f["float32"] += 2 * mc * ted + 2 * ted * ted           # time embedding
+    lay = blocks(arch)
+    for s in _specs(lay):
+        r = s["res"]
+        if s["kind"] == "conv":
+            f[torso] += _conv_flops(s["cin"], s["cout"], 3, r * r)
+        elif s["kind"] == "res":
+            ro = r * 2 if s["updown"] == "up" else (r // 2 if s["updown"] == "down" else r)
+            cin, cout = s["cin"], s["cout"]
+            f[torso] += _conv_flops(cin, cout, 3, ro * ro) + _conv_flops(cout, cout, 3, ro * ro)
+            f[torso] += 2 * ted * (2 * cout if arch.use_scale_shift_norm else cout)
+            if cin != cout:
+                f[torso] += _conv_flops(cin, cout, 1, ro * ro)
+        else:
+            c, t = s["ch"], r * r
+            f[torso] += 2 * t * c * 3 * c + 2 * t * c * c     # qkv, proj_out
+            f["float32"] += 2 * t * t * c                      # q k^T, f32 logits
+            f[torso] += 2 * t * t * c                          # weights @ v
+    f["float32"] += _conv_flops(lay["final_ch"], arch.out_channels, 3, arch.image_size ** 2)
+    return {k: v * batch for k, v in f.items()}
+
+
+def input_backward_flops(arch: Arch, torso: str, batch: int = 1) -> Dict[str, float]:
+    """{precision: FLOPs} of the pullback to the input (no weight
+    gradients): each product's input gradient, attention's matmuls twice,
+    nothing for the embeddings, which do not depend on the input."""
+    f = forward_flops(arch, torso, 1)
+    mc, ted = arch.num_channels, 4 * arch.num_channels
+    f["float32"] -= 2 * mc * ted + 2 * ted * ted
+    for s in _specs(blocks(arch)):
+        if s["kind"] == "res":
+            f[torso] -= 2 * ted * (2 * s["cout"] if arch.use_scale_shift_norm else s["cout"])
+        elif s["kind"] == "attn":
+            c, t = s["ch"], s["res"] ** 2
+            f["float32"] += 2 * t * t * c
+            f[torso] += 2 * t * t * c
+    return {k: v * batch for k, v in f.items()}
+
+
+def norm_inputs(arch: Arch) -> List[Tuple[int, int, int]]:
+    """(C, H, W) of every GroupNorm's input in one forward, in order."""
+    out = []
+    lay = blocks(arch)
+    for s in _specs(lay):
+        r = s["res"]
+        if s["kind"] == "res":
+            ro = r * 2 if s["updown"] == "up" else (r // 2 if s["updown"] == "down" else r)
+            out += [(s["cin"], r, r), (s["cout"], ro, ro)]
+        elif s["kind"] == "attn":
+            out.append((s["ch"], r, r))
+    out.append((lay["final_ch"], arch.image_size, arch.image_size))
+    return out

@@ -33,21 +33,35 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+def fp8(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to float8 e4m3 under a per-tensor scale (abs-max to
+    448), back in t's type: the control's torso operands, as a family's
+    forward takes them through its ``rounding`` hook."""
+    s = torch.clamp(t.detach().abs().amax(), min=1e-30) / 448.0
+    q = (t / s).to(torch.float8_e4m3fn).to(t.dtype) * s
+    return t + (q - t).detach()
+
+
 # -- the EDM schedule (linear sigma, no scaling, no churn) ----------------------
 
-def schedule(steps: int, grid64: np.ndarray, sigma_min: float = 0.002,
+def schedule(steps: int, grid64, net_range, sigma_min: float = 0.002,
              sigma_max: float = 80.0, rho: float = 7.0) -> dict:
     """Per-step arrays of the Heun sampler (float32, as the sampler reads
-    them) and ``sigma0``, the initial noise's scale. Sigmas snap to the
-    denoiser's grid (``grid64``, float64; its float32 values are the
-    snapped sigmas)."""
-    grid = grid64.astype(F32)
-    lo = max(sigma_min, float(grid64[len(grid64) - 2]))
-    hi = min(sigma_max, float(grid64[0]))
+    them) and ``sigma0``, the initial noise's scale. ``net_range`` is the
+    denoiser's (sigma_min, sigma_max), which bounds the sampler's. Sigmas
+    snap to the denoiser's grid (``grid64``, float64; its float32 values
+    are the snapped sigmas) or, where ``grid64`` is None (a continuous-sigma
+    denoiser), stay as the discretisation gives them."""
+    lo = max(sigma_min, float(net_range[0]))
+    hi = min(sigma_max, float(net_range[1]))
     i = np.arange(steps, dtype=np.float64)
     s = (hi ** (1 / rho) + i / (steps - 1) * (lo ** (1 / rho) - hi ** (1 / rho))) ** rho
-    idx = np.argmin(np.abs(s.astype(np.float32)[:, None] - grid[None, :]), axis=1)
-    t = np.concatenate([grid[idx].astype(np.float64), [0.0]])
+    if grid64 is None:
+        t = np.concatenate([s, [0.0]])
+    else:
+        grid = np.asarray(grid64).astype(F32)
+        idx = np.argmin(np.abs(s.astype(np.float32)[:, None] - grid[None, :]), axis=1)
+        t = np.concatenate([grid[idx].astype(np.float64), [0.0]])
     heun = np.arange(steps) < steps - 1
     h = t[1:] - t[:-1]
     with np.errstate(divide="ignore"):

@@ -4,10 +4,11 @@
 
 Prints one JSON line last on standard output: ``correct``, ``attempted``
 (images whose sampling began in the window), ``failed`` (images of the
-window's whole runs whose sample is not finite), ``metrics`` (the cell's
-end-to-end metrics; with ``--trace 1`` its per-layer metrics), ``device``
-and, last, ``check``: each number compared beside its limit, which also
-close standard error. Exits non-zero with no result line where the card is
+finished runs whose sample is not finite: the window's whole runs, and run
+0 where the window closed inside it and it finished untimed), ``metrics``
+(the cell's end-to-end metrics; with ``--trace 1`` its per-layer metrics),
+``device`` and, last, ``check``: each number compared beside its limit,
+which also close standard error. Exits non-zero with no result line where the card is
 missing, where a module of JAX or of the JAX package is loaded at the end,
 or where the run fails.
 """

@@ -3,9 +3,23 @@
 * ``BENCHMARK.json`` at the root of the checkout: the cells and metrics.
 * ``benchmark/workloads/<cell>.json``: a cell's configuration and traffic
   names, its correctness limits and what its check samples.
-* ``benchmark/configs/<config>.json``: a configuration's published shapes,
-  its prior, its precision and the program's model options (``program``:
-  ``create_model``'s remat, quant, ...).
+* ``benchmark/configs/<config>.json``: a configuration's published shapes
+  (``model``), its prior, its precision, the program's model options
+  (``program``: remat, quant, ...) and, under ``family``, its denoiser
+  family (``adm`` where the key is absent).
+* ``benchmark/reference/<family>.py``: a denoiser family's plain float32
+  reference, which imports nothing of the program: ``arch_of``,
+  ``param_shapes`` (each parameter's name, shape and init kind),
+  ``preclamp`` (the denoiser before its clip, with the control's
+  ``rounding`` hook), ``snap_grid`` (the sigmas the denoiser snaps to, or
+  None) and ``sigma_range``, and the frozen counts ``forward_flops``,
+  ``input_backward_flops`` and ``norm_inputs``.
+* ``benchmark/program/<family>.py``: the family on the program's side, the
+  only files here that import the program's model code: ``build`` (the
+  model from the configuration with the weights loaded, and its
+  preconditioner, whose ``round_sigma``, ``sigma_min`` and ``sigma_max``
+  set the sampler's schedule) and ``norm_modules`` (the modules whose
+  inputs the traced stretch counts GroupNorm bytes of).
 * ``benchmark/traffic/<traffic>.json``: a traffic mix's parameters, read by
   the one generator in ``inputs.py`` and ``harness.py``.
 * ``benchmark/reference/operators/<operator>.py``: the measurement operator
@@ -22,6 +36,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Dict, List
 
@@ -53,6 +68,23 @@ def cell(name: str, base: Path = HERE) -> dict:
     return c
 
 
+def family(config: dict) -> str:
+    """A configuration's denoiser family: its ``family`` key, else "adm"."""
+    return config.get("family", "adm")
+
+
+def reference(config: dict, base: Path = HERE):
+    """The module of ``reference/<family>.py`` of ``config``'s family."""
+    name = family(config)
+    return _module(base / "reference" / f"{name}.py", f"benchmark_reference_{name}")
+
+
+def program(config: dict, base: Path = HERE):
+    """The module of ``program/<family>.py`` of ``config``'s family."""
+    name = family(config)
+    return _module(base / "program" / f"{name}.py", f"benchmark_program_{name}")
+
+
 def per_layer(cell_name: str, bench: dict) -> List[dict]:
     """The per-layer metrics this cell reports: those listing it, and
     those without a ``workloads`` key."""
@@ -72,6 +104,7 @@ def _module(path: Path, key: str):
         spec = importlib.util.spec_from_file_location(
             key.replace(".", "_").replace("-", "_"), path)
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod     # a dataclass looks its module up while it is made
         spec.loader.exec_module(mod)
         _MODULES[path] = mod
     return _MODULES[path]

@@ -14,6 +14,8 @@ import torch  # noqa: E402
 
 import spec  # noqa: E402
 
+ADM = spec.reference({})     # the adm family's reference module
+
 TINY_MODEL = dict(image_size=32, num_channels=32, num_res_blocks=1, channel_mult="1,2",
                   attention_resolutions="16", num_head_channels=16)
 

@@ -43,11 +43,11 @@ def test_the_control_is_not_correct_at_full_size(cell):
     import inputs
     import spec
     import weights as weights_mod
-    from reference import unet as ref_unet
     c = spec.cell(cell)
     dev = torch.device("cuda")
-    arch = ref_unet.arch_of(c["config"]["model"])
-    w = weights_mod.make(arch, 11, dev, c["config"]["precision"])
+    fam = spec.reference(c["config"])
+    arch = fam.arch_of(c["config"]["model"])
+    w = weights_mod.make(fam.param_shapes(arch), 11, dev, c["config"]["precision"])
     prog = harness.Program(c, w, dev)
     ctl = harness.Program(c, w, dev, quant="int8") if c["check"]["control_torso"] == "int8" \
         else None

@@ -26,6 +26,17 @@ class OneRun(harness.Boundary):
         return super().__call__(denoise, x_t, y, sigma, state)
 
 
+class CloseInRun0(harness.Boundary):
+    """The window closes at run 0's sixth call, as a ``seconds`` shorter
+    than one run does."""
+
+    def __call__(self, denoise, x_t, y, sigma, state):
+        if self.captures is not None and self.captures.run == 0 and self.in_run == 5 and \
+                self.t_close is None:
+            self.deadline = 0.0
+        return super().__call__(denoise, x_t, y, sigma, state)
+
+
 def run(cell, seed=2 ** 31 + 77):
     """The harness's run of ``cell`` on the CPU, the window one whole run:
     (correct, result), every number read."""
@@ -108,15 +119,36 @@ def test_the_control_is_not_correct(cell):
     import control
     import inputs
     import weights as weights_mod
-    from reference import unet as ref_unet
+    from _tiny import ADM
     torch.set_num_threads(2)
     c = tiny_cell(cell, torso="float32")
     dev = torch.device("cpu")
-    arch = ref_unet.arch_of(c["config"]["model"])
-    w = weights_mod.make(arch, 3, dev, c["config"]["precision"])
+    arch = ADM.arch_of(c["config"]["model"])
+    w = weights_mod.make(ADM.param_shapes(arch), 3, dev, c["config"]["precision"])
     prog = harness.Program(c, w, dev)
     ctl = harness.Program(c, w, dev, quant="int8")
     images = inputs.bundled_images(BENCH.parent / ".bench_cache" / "data")
     r = control.seed_readings(c, 2 ** 31 + 5, prog, ctl, images, dev, True)
     assert compare.verdict(r["program"], c["limits"]), r
     assert not compare.verdict(r["control"], c["limits"]), r
+
+
+@pytest.mark.parametrize("close", ["at_the_first_call", "at_the_sixth_call"])
+def test_a_window_shorter_than_one_run_still_checks_every_step(close, monkeypatch):
+    """The window closes inside run 0 (``seconds`` 0, or at its sixth call):
+    it counts only the calls before it, and run 0 goes on untimed, so the
+    check judges every sampled step, with the numbers of a window that
+    holds run 0 whole."""
+    c = tiny_cell("imagenet256-blur-vjp", torso="float32")
+    _, whole = run(c, seed=2 ** 31 + 99)
+    torch.set_num_threads(2)
+    if close == "at_the_sixth_call":
+        monkeypatch.setattr(harness, "Boundary", CloseInRun0)
+    res = harness.run_cell(c, 2 ** 31 + 99, 0.0 if close == "at_the_first_call" else 600.0,
+                           False, time.time(), device="cpu",
+                           cache_dir=BENCH.parent / ".bench_cache" / "data")
+    assert res["runs_done"] == 0 and res["runs_started"] == 1 and res["failed"] == 0
+    assert res["calls"] == (0 if close == "at_the_first_call" else 5)
+    assert res["window_s"] > 0
+    assert res["numbers"] == whole["numbers"]
+    assert compare.verdict(res["numbers"], c["limits"])

@@ -4,10 +4,9 @@ the calls a program forward and pullback make."""
 import pytest
 import torch
 
-from _tiny import BENCH, TINY_MODEL, one_thread
+from _tiny import ADM, BENCH, TINY_MODEL, one_thread
 
 import flops  # noqa: E402
-from reference import unet as ref_unet  # noqa: E402
 
 SETUPS = {"imagenet256-adm": (BENCH.parent / "models" / "256x256_diffusion_uncond_setup.txt",
                               2_239_665_537_024, 101),
@@ -24,10 +23,10 @@ def test_forward_count_matches_the_tool_at_batch_1(name):
     one_thread()
     torch.set_num_threads(4)
     setup, want, norms = SETUPS[name]
-    arch = ref_unet.arch_of(spec.config(name)["model"])
-    mine = sum(flops.forward(arch, "bfloat16", 1).values())
+    arch = ADM.arch_of(spec.config(name)["model"])
+    mine = sum(ADM.forward_flops(arch, "bfloat16", 1).values())
     assert mine == want
-    assert len(flops.norm_inputs(arch)) == norms
+    assert len(ADM.norm_inputs(arch)) == norms
     precond, _ = count_flops.load_denoiser(str(setup), None, device="cpu")
     got = count_flops.forward_flops(precond, 1)["flops_per_forward"]
     assert got == mine
@@ -43,7 +42,7 @@ def test_the_pullback_count_is_the_tools_backward():
     one_thread()
     cfg = spec.config("imagenet256-adm")["model"]
     cfg.update(TINY_MODEL)
-    arch = ref_unet.arch_of(cfg)
+    arch = ADM.arch_of(cfg)
     model = create_model(**cfg, remat=False).eval().requires_grad_(False)
     pre = loading.wrap_precond(model, cfg)
     x = torch.zeros((2, 3, 32, 32), requires_grad=True)
@@ -53,8 +52,8 @@ def test_the_pullback_count_is_the_tools_backward():
         return torch.autograd.grad(d, x, torch.ones_like(d))
 
     _, total, _ = count_flops(vjp)
-    want = sum(flops.forward(arch, "bfloat16", 2).values()) + \
-        sum(flops.input_backward(arch, "bfloat16", 2).values())
+    want = sum(ADM.forward_flops(arch, "bfloat16", 2).values()) + \
+        sum(ADM.input_backward_flops(arch, "bfloat16", 2).values())
     assert total == want
 
 
@@ -67,7 +66,7 @@ def test_norm_bytes_from_the_shapes_match_the_program_calls():
     one_thread()
     cfg = spec.config("ffhq256-adm")["model"]
     cfg.update(TINY_MODEL)
-    arch = ref_unet.arch_of(cfg)
+    arch = ADM.arch_of(cfg)
     model = create_model(**cfg, remat=False).eval().requires_grad_(False)
     seen = []
     for m in model.modules():
@@ -75,7 +74,7 @@ def test_norm_bytes_from_the_shapes_match_the_program_calls():
             m.register_forward_hook(lambda mod, a, o: seen.append(tuple(a[0].shape[1:])))
     with torch.no_grad():
         model(torch.zeros((1, 3, 32, 32)), torch.zeros((1,)))
-    assert seen == list(flops.norm_inputs(arch))
+    assert seen == list(ADM.norm_inputs(arch))
     shape = (8, 512, 256, 256)
     assert flops.k1_bytes(shape, 2) == 2 * 8 * 512 * 256 * 256 * 2
     assert flops.gn_backward_bytes(shape, 2) == 3 * 8 * 512 * 256 * 256 * 2

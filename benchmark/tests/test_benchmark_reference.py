@@ -5,32 +5,32 @@ import numpy as np
 import pytest
 import torch
 
-from _tiny import TINY_MODEL, one_thread
+from _tiny import ADM, TINY_MODEL, one_thread
 
+import compare  # noqa: E402
 import spec  # noqa: E402
 import weights as weights_mod  # noqa: E402
 from reference import freehunch as ref_fh  # noqa: E402
-from reference import unet as ref_unet  # noqa: E402
 
 
 def tiny_arch():
     cfg = spec.config("imagenet256-adm")["model"]
     cfg.update(TINY_MODEL)
-    return cfg, ref_unet.arch_of(cfg)
+    return cfg, ADM.arch_of(cfg)
 
 
 def test_blocks_of_rows_give_the_whole_batch():
     one_thread()
     cfg, arch = tiny_arch()
-    p = weights_mod.float32(weights_mod.make(arch, 7, "cpu", {"torso": "float32"}))
-    grid = ref_unet.sigma_grid()
+    p = weights_mod.float32(weights_mod.make(ADM.param_shapes(arch), 7, "cpu",
+                                             {"torso": "float32"}))
     x = torch.randn((4, 3, 32, 32), generator=torch.Generator().manual_seed(0)) * 3
     ct = torch.randn_like(x)
-    d1, (g1,) = ref_unet.denoise_rows(p, arch, x, 3.0, grid, 1, [(ct, x)])
-    d4, (g4,) = ref_unet.denoise_rows(p, arch, x, 3.0, grid, 4, [(ct, x)])
+    d1, (g1,) = compare.denoise_rows(ADM, p, arch, x, 3.0, 1, [(ct, x)])
+    d4, (g4,) = compare.denoise_rows(ADM, p, arch, x, 3.0, 4, [(ct, x)])
     torch.testing.assert_close(d1, d4, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(g1, g4, rtol=1e-5, atol=1e-6)
-    dn, _ = ref_unet.denoise_rows(p, arch, x, 3.0, grid, 2)
+    dn, _ = compare.denoise_rows(ADM, p, arch, x, 3.0, 2)
     torch.testing.assert_close(dn, d4, rtol=1e-5, atol=1e-6)
 
 
@@ -112,6 +112,21 @@ def test_cg_meets_its_tolerance(prior, kind):
     assert float(rho.max()) < 1e-3
 
 
+def test_a_continuous_sigma_schedule_is_the_programs():
+    """A denoiser with no sigma grid (the VE range of NCSN++, round_sigma
+    the identity): the reference's Heun schedule equals the program's."""
+    from free_hunch_tpu_torch.samplers import edm
+    for steps in (8, 30):
+        xs, s0 = edm.prepare_schedule(round_sigma=lambda s: np.asarray(s, np.float64),
+                                      net_sigma_min=0.01, net_sigma_max=1348.0,
+                                      num_steps=steps, solver="heun", discretization="edm",
+                                      schedule="linear", scaling="none")
+        mine = ref_fh.schedule(steps, None, (0.01, 1348.0))
+        for k in ("sigma_hat", "h", "sigma_prime", "c1", "c2", "use_heun"):
+            np.testing.assert_array_equal(mine[k], xs[k])
+        assert mine["sigma0"] == s0 and ref_fh.cov_capacity(mine) == edm.required_cov_capacity(xs)
+
+
 def test_the_schedule_and_the_denoiser_are_the_programs():
     """Where both run in float32 on the CPU: the Heun schedule equals the
     program's, and the UNet agrees with the program's float32 torso."""
@@ -120,20 +135,20 @@ def test_the_schedule_and_the_denoiser_are_the_programs():
     from free_hunch_tpu_torch.samplers import edm
     one_thread()
     cfg, arch = tiny_arch()
-    w = weights_mod.make(arch, 5, "cpu", {"torso": "float32"})
+    w = weights_mod.make(ADM.param_shapes(arch), 5, "cpu", {"torso": "float32"})
     model = create_model(**cfg, dtype=torch.float32, remat=False)
     model.load_state_dict(w)
     pre = loading.wrap_precond(model.eval().requires_grad_(False), cfg)
     xs, s0 = edm.prepare_schedule(round_sigma=pre.round_sigma, net_sigma_min=pre.sigma_min,
                                   net_sigma_max=pre.sigma_max, num_steps=30, solver="heun",
                                   discretization="edm", schedule="linear", scaling="none")
-    mine = ref_fh.schedule(30, ref_unet.sigma_grid())
+    mine = ref_fh.schedule(30, ADM.snap_grid(arch), ADM.sigma_range(arch))
     for k in ("sigma_hat", "h", "sigma_prime", "c1", "c2"):
         np.testing.assert_array_equal(mine[k], xs[k])
     assert mine["sigma0"] == s0 and ref_fh.cov_capacity(mine) == edm.required_cov_capacity(xs)
     x = torch.randn((2, 3, 32, 32), generator=torch.Generator().manual_seed(2)) * 4
     with torch.no_grad():
         got, _ = pre(x, float(xs["sigma_hat"][10]))
-    pre, _ = ref_unet.denoise_rows(weights_mod.float32(w), arch, x, float(xs["sigma_hat"][10]),
-                                   ref_unet.sigma_grid(), 2)
+    pre, _ = compare.denoise_rows(ADM, weights_mod.float32(w), arch, x,
+                                  float(xs["sigma_hat"][10]), 2)
     torch.testing.assert_close(got, torch.clamp(pre, -1, 1), rtol=1e-4, atol=1e-5)

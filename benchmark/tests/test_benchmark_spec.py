@@ -49,7 +49,7 @@ def test_an_operator_and_an_int8_configuration_added_as_files_are_found(tmp_path
     a configuration's ``program`` block reaches the program's model."""
     import harness
     import weights as weights_mod
-    from reference import unet as ref_unet
+    from _tiny import ADM
     ops = tmp_path / "reference" / "operators"
     ops.mkdir(parents=True)
     (ops / "box_blur.py").write_text(
@@ -68,8 +68,8 @@ def test_an_operator_and_an_int8_configuration_added_as_files_are_found(tmp_path
     c = tiny_cell("ffhq256-blur-vjp", torso="float32")
     c["config"]["program"] = dict(remat=False, quant="int8")
     c["config"]["precision"]["torso_products"] = "int8"
-    arch = ref_unet.arch_of(c["config"]["model"])
-    w = weights_mod.make(arch, 3, "cpu", c["config"]["precision"])
+    arch = ADM.arch_of(c["config"]["model"])
+    w = weights_mod.make(ADM.param_shapes(arch), 3, "cpu", c["config"]["precision"])
     prog = harness.Program(c, w, "cpu")
     assert prog.model.cfg.quant == "int8" and not prog.model.cfg.remat
     import flops
