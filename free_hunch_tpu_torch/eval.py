@@ -157,10 +157,14 @@ class Evaluator:
         quant = opts.get("quant", "none")
         quant = None if quant in (None, "none", "") else quant
         self._quant = quant
+        # the denoiser family: ``architecture`` "openai" (the ADM UNet) or
+        # "ncsnpp" (score_sde's NCSN++, whose setup file is a JSON model block
+        # and whose preconditioner is "ve")
         self.model, model_args = load_model(
             opts.get("openai_state_dict_path"), opts["openai_setup_path"], dtype=dtype,
             remat=remat, init_random_if_missing=bool(opts.get("allow_random_init", False)),
-            device=self.device, quant=quant, model_group=self.mg)
+            device=self.device, quant=quant, model_group=self.mg,
+            architecture=opts.get("architecture") or "openai")
         self._model_args = model_args
         self._precond_kind = opts.get("iddpm_preconditioning", "linear")
         self.res = model_args.get("image_size", 256)

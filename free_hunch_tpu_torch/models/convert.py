@@ -14,6 +14,13 @@ keyed by flax module paths such as ``down_3_res/in_conv/act_scale``); the
 port's is (sigmas, {torch module name: scales}), e.g.
 ``input_blocks.4.0.in_layers.2``. The site pairs come from ``name_map``.
 
+``ncsnpp_state_dict_from_score_sde`` maps a score_sde NCSN++ state dict
+(``models/ncsnpp.py``'s modules in one list, ``all_modules.<i>.<name>``,
+maybe under DataParallel's ``module.``) onto the port's names
+(``models/ncsnpp.py``): ``NIN`` weights (in, out) -> (out, in) linear
+weights, the Fourier ``W`` (stored already scaled) divided by the
+configuration's ``fourier_scale``; ``ncsnpp_name_map`` lists the pairs.
+
 ``vae_state_dict_from_flax`` does the same for the SD-VAE of
 ``free_hunch_tpu/models/vae.py`` (flax module paths such as
 ``encoder/down_0_resnet_1/norm1`` -> diffusers names such as
@@ -28,6 +35,7 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from free_hunch_tpu_torch.models.ncsnpp import NCSNppConfig
 from free_hunch_tpu_torch.models.unet import UNetConfig
 
 
@@ -271,3 +279,94 @@ def load_vae_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = np.asarray(blob[key])
     return {"params": tree.get("params", tree)}
+
+
+# -- score_sde's NCSN++ -------------------------------------------------------------
+
+_NCSNPP_RES = (("norm0", "GroupNorm_0"), ("conv0", "Conv_0"), ("dense", "Dense_0"),
+               ("norm1", "GroupNorm_1"), ("conv1", "Conv_1"))
+_NCSNPP_ATTN = (("q", "NIN_0"), ("k", "NIN_1"), ("v", "NIN_2"), ("proj", "NIN_3"))
+
+
+def ncsnpp_name_map(cfg: NCSNppConfig) -> List[Tuple[str, str, str]]:
+    """(port name, score_sde name, kind) for every parameter, by replaying
+    the order in which score_sde's ``NCSNpp.__init__`` appends its modules;
+    kinds: ``raw``, ``nin`` (transposed), ``fourier`` (divided by
+    ``fourier_scale``)."""
+    out: List[Tuple[str, str, str]] = []
+    at = [0]
+
+    def module():
+        i = at[0]
+        at[0] += 1
+        return f"all_modules.{i}"
+
+    def raw(port, src):
+        out.extend([(f"{port}.weight", f"{src}.weight", "raw"),
+                    (f"{port}.bias", f"{src}.bias", "raw")])
+
+    def res(port, skip):
+        src = module()
+        for p, q in _NCSNPP_RES:
+            raw(f"{port}.{p}", f"{src}.{q}")
+        if skip:
+            raw(f"{port}.skip", f"{src}.Conv_2")
+
+    def attn(port):
+        src = module()
+        raw(f"{port}.norm", f"{src}.GroupNorm_0")
+        for p, q in _NCSNPP_ATTN:
+            out.extend([(f"{port}.{p}.weight", f"{src}.{q}.W", "nin"),
+                        (f"{port}.{p}.bias", f"{src}.{q}.b", "raw")])
+
+    out.append(("fourier.W", f"{module()}.W", "fourier"))
+    raw("temb.0", module())
+    raw("temb.1", module())
+    raw("conv_in", module())
+    cin, skips = cfg.nf, [cfg.nf]
+    for level in range(cfg.levels):
+        ch = cfg.ch(level)
+        for b in range(cfg.num_res_blocks):
+            res(f"down.{level}.res.{b}", cin != ch)
+            if cfg.res(level) in cfg.attn_resolutions:
+                attn(f"down.{level}.attn.{b}")
+            cin = ch
+            skips.append(ch)
+        if level != cfg.levels - 1:
+            res(f"down.{level}.down", True)
+            raw(f"down.{level}.combine", f"{module()}.Conv_0")
+            skips.append(ch)
+    res("mid.0", False)
+    attn("mid.1")
+    res("mid.2", False)
+    for k, level in enumerate(reversed(range(cfg.levels))):
+        ch = cfg.ch(level)
+        for b in range(cfg.num_res_blocks + 1):
+            res(f"up.{k}.res.{b}", cin + skips.pop() != ch)
+            cin = ch
+        if cfg.res(level) in cfg.attn_resolutions:
+            attn(f"up.{k}.attn")
+        raw(f"up.{k}.out_norm", module())
+        raw(f"up.{k}.out_conv", module())
+        if level != 0:
+            res(f"up.{k}.up", True)
+    return out
+
+
+def ncsnpp_state_dict_from_score_sde(sd: Mapping[str, torch.Tensor],
+                                     cfg: NCSNppConfig) -> Dict[str, torch.Tensor]:
+    """The port's NCSN++ state dict of a score_sde one (a plain state dict,
+    maybe under ``module.``, or a checkpoint holding it under ``model``;
+    the ``sigmas`` buffer is not a parameter)."""
+    if "model" in sd and isinstance(sd["model"], Mapping):
+        sd = sd["model"]
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    out = {}
+    for port, src, kind in ncsnpp_name_map(cfg):
+        w = sd[src]
+        if kind == "nin":
+            w = w.t().contiguous()
+        elif kind == "fourier":
+            w = w / cfg.fourier_scale
+        out[port] = w
+    return out

@@ -7,7 +7,8 @@ consumed by the guidance mechanisms:
 with D(x, sigma) = clip(x - sigma F(c_in x, c_noise), -1, 1). The linear
 class maps the learned-sigma channel to an x0 posterior variance (Peng et
 al. Eq. 22); the cosine class has no such mapping on its grid and returns
-the MLE variance sigma^2 / (1 + sigma^2).
+the MLE variance sigma^2 / (1 + sigma^2). ``VEPrecond`` is score_sde's
+continuous-sigma VE SDE around NCSN++ (no grid; its own data range).
 
 With ``qscales`` (an ``int8_static`` UNet's calibration table,
 ``models/calibrate.py``), every call first selects the stage scales for its
@@ -189,3 +190,64 @@ class IDDPMCosinePrecond(_Precond):
 
 
 PRECONDS = {"linear": IDDPMLinearPrecond, "cosine": IDDPMCosinePrecond}
+
+
+class VEPrecond(nn.Module):
+    """score_sde's variance-exploding SDE around a network of continuous
+    sigma (NCSN++, ``models/ncsnpp.py``): no sigma grid (``round_sigma`` is
+    the identity), sigma in [``sigma_min``, ``sigma_max``] (score_sde's
+    0.01 and 1348 for FFHQ 1024), and the network's score.
+
+    The network was trained on data in its own range: [0, 1] where the
+    configuration's ``centered`` is False (score_sde's ``data.centered``),
+    which it maps to [-1, 1] inside. The port's images lie in [-1, 1], so
+    the call maps them to that range, x_m = c x + b (c = 1/2, b = 1/2; c = 1,
+    b = 0 where centered), at sigma_m = c sigma, and maps the denoiser back:
+
+        D(x, sigma) = clip(x + c sigma^2 s(x_m, sigma_m), -1, 1)
+
+    with s the network's score (its output under ``scale_by_sigma``: its
+    last layer's h over sigma_m, so that the sum is x + sigma h, EDM's
+    ``VEPrecond`` with c_noise = log(sigma_m)). The variance is the MLE
+    sigma^2 / (1 + sigma^2), as ``IDDPMCosinePrecond``'s. ``forward(x,
+    sigma)`` takes sigma as a host float or a tensor; ``y`` (labels) is
+    accepted and unused."""
+    label_dim = 0
+
+    def __init__(self, model: nn.Module, img_resolution: int, img_channels: int = 3,
+                 sigma_min: float = 0.01, sigma_max: float = 1348.0, centered: bool = False):
+        super().__init__()
+        self.model = model
+        self.img_resolution = img_resolution
+        self.img_channels = img_channels
+        self.sigma_min, self.sigma_max = float(sigma_min), float(sigma_max)
+        self.c, self.b = (1.0, 0.0) if centered else (0.5, 0.5)
+
+    @classmethod
+    def around(cls, model: nn.Module) -> "VEPrecond":
+        """The preconditioner of an NCSN++ model, from its configuration
+        (``model.cfg``: image size, channels, sigma range, data range), on
+        the model's device."""
+        cfg = model.cfg
+        return cls(model, img_resolution=cfg.image_size, img_channels=cfg.num_channels,
+                   sigma_min=cfg.sigma_min, sigma_max=cfg.sigma_max, centered=cfg.centered)
+
+    def round_sigma(self, sigma):
+        """The identity: a continuous-sigma network has no grid."""
+        if isinstance(sigma, torch.Tensor):
+            return sigma
+        return np.asarray(sigma, np.float64)
+
+    def forward(self, x: torch.Tensor, sigma, y: Optional[torch.Tensor] = None):
+        """D(x, sigma) -> (x0_mean in [-1, 1], x0_var); x is (N, C, H, W)."""
+        x = x.float()
+        n = x.shape[0]
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma.float().reshape(-1).broadcast_to((n,)).to(x.device)
+        else:
+            sigma = torch.as_tensor(np.broadcast_to(
+                np.asarray(sigma, np.float32).reshape(-1), (n,)).copy(), device=x.device)
+        score = self.model(self.c * x + self.b, self.c * sigma)
+        s4 = sigma[:, None, None, None]
+        D_x = torch.clamp(x + (self.c * s4 ** 2) * score.float(), -1.0, 1.0)
+        return D_x, (s4 ** 2 / (1 + s4 ** 2)).expand(D_x.shape)

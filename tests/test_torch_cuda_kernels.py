@@ -233,7 +233,7 @@ def _close_to_twin(dx, want, dtype):
         assert err <= 2 * float(ulp), (err, float(ulp))
 
 
-def check_backward(shape, itemsize, seed=12):
+def check_backward(shape, itemsize, seed=12, groups=32, eps=1e-5):
     """The backward kernel at one shape, with and without SiLU: through the
     autograd Function (the forward's statistics where its two-pass path
     kept them) and alone with the statistics computed again (the cluster
@@ -247,15 +247,15 @@ def check_backward(shape, itemsize, seed=12):
     g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
     b = torch.randn(c, generator=gen, device="cuda") * 0.1
     for silu in (True, False):
-        want = gn.groupnorm_silu_backward_plain(x, dy, g, b, 32, 1e-5, silu)
+        want = gn.groupnorm_silu_backward_plain(x, dy, g, b, groups, eps, silu)
         before = gn.bwd_launches
         got = []
         for _ in range(2):
             xg = x.detach().requires_grad_(True)
-            y = gn.groupnorm_silu(xg, g, b, 32, 1e-5, silu)
+            y = gn.groupnorm_silu(xg, g, b, groups, eps, silu)
             got.append(torch.autograd.grad(y, xg, dy)[0])
         for _ in range(2):
-            got.append(gn.groupnorm_silu_backward_cuda(x, dy, g, b, 32, 1e-5, silu))
+            got.append(gn.groupnorm_silu_backward_cuda(x, dy, g, b, groups, eps, silu))
         torch.cuda.synchronize()
         assert gn.bwd_launches == before + 4
         assert torch.equal(got[0], got[1]) and torch.equal(got[2], got[3])
@@ -282,6 +282,55 @@ def test_backward_kernel_matches_plain_at_every_ffhq_forward_shape(shape, itemsi
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
     check_backward(shape, itemsize)
+
+
+def _ncsnpp_shapes():
+    """(NHWC shape, groups, itemsize) of each distinct GroupNorm call of
+    NCSN++'s forward at FFHQ 1024 px, batch 8 (min(C / 4, 32) groups; 16 to
+    48 channels over 1M rows at 1024 px), in both types."""
+    from test_torch_gn_plan import ncsnpp_norm_calls
+    out = []
+    for n, s, c, g in ncsnpp_norm_calls():
+        side = int(round(s ** 0.5))
+        out += [((n, side, side, c), g, z) for z in (2, 4)]
+    return sorted(out, key=lambda k: (-k[0][1], -k[0][3], k[2]))
+
+
+NCSNPP_K1_SHAPES = _ncsnpp_shapes()
+NCSNPP_IDS = [f"ncsnpp_{s[1]}px_{s[3]}_g{g}_{'f32' if z == 4 else 'bf16'}"
+              for s, g, z in NCSNPP_K1_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,itemsize", NCSNPP_K1_SHAPES, ids=NCSNPP_IDS)
+def test_kernel_matches_plain_at_every_ncsnpp_forward_shape(shape, groups, itemsize):
+    """K1 with and without SiLU at NCSN++'s groups and eps 1e-6: two bf16
+    ulps, or 1e-5 in f32, as at the UNets' shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    dtype = torch.float32 if itemsize == 4 else torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = torch.randn(c, generator=gen, device="cuda") * 0.1 + 1
+    b = torch.randn(c, generator=gen, device="cuda") * 0.1
+    for silu in (True, False):
+        want = gn.groupnorm_silu_plain(x, g, b, groups, 1e-6, silu)
+        y = gn.groupnorm_silu_cuda(x, g, b, groups, 1e-6, silu)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+        else:
+            ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+            assert float((y.float() - want.float()).abs().max()) <= 2 * float(ulp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,itemsize", NCSNPP_K1_SHAPES, ids=NCSNPP_IDS)
+def test_backward_kernel_matches_plain_at_every_ncsnpp_forward_shape(shape, groups, itemsize):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernel has no CPU mode")
+    check_backward(shape, itemsize, groups=groups, eps=1e-6)
 
 
 @pytest.mark.cuda

@@ -269,3 +269,63 @@ def test_bwd_plan_refuses_what_the_kernel_cannot_take():
     assert gn.gn_bwd_plan(8, 64, 512, 32, 2, SMS, True, path="two-pass").path == "two-pass"
     assert gn.gn_bwd_plan(8, 65536, 512, 32, 2, SMS, True, path="cluster").path == "cluster"
     assert gn.gn_bwd_plan(8, 65536, 512, 32, 2, SMS, False).path == "cluster"
+
+
+# -- NCSN++ at FFHQ 1024 px: min(C / 4, 32) groups, 16-1024 channels --------
+
+def ncsnpp_norm_calls(batch=8):
+    """(n, rows, channels, groups) of every distinct GroupNorm call of one
+    forward of score_sde's NCSN++ at FFHQ 1024 px, from the benchmark
+    family's ``norm_inputs`` (``benchmark/reference/ncsnpp.py``) of the
+    configuration ``benchmark/configs/ffhq1024-ncsnpp.json``."""
+    import importlib.util
+    import json
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    name = "ncsnpp_reference"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, root / "benchmark" / "reference" / "ncsnpp.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    ref = sys.modules[name]
+    cfg = json.loads((root / "benchmark" / "configs" / "ffhq1024-ncsnpp.json").read_text())
+    return sorted({(batch, h * w, c, ref.groups(c))
+                   for c, h, w in ref.norm_inputs(ref.arch_of(cfg["model"]))})
+
+
+NCSNPP_SHAPES = [s + (z,) for s in ncsnpp_norm_calls() for z in (2, 4)]
+
+
+@pytest.mark.parametrize("n,s,c,groups,itemsize", NCSNPP_SHAPES,
+                         ids=[f"ncsnpp_s{s}_c{c}_g{g}_{'f32' if z == 4 else 'bf16'}"
+                              for _, s, c, g, z in NCSNPP_SHAPES])
+def test_ncsnpp_shapes_plan_forward_and_backward(n, s, c, groups, itemsize):
+    """Both planners take every NCSN++ norm at batch 8 in either type: the
+    forward's plan covers every row once in whole 16-byte vectors; the
+    backward's two-pass path exactly where the forward kept its statistics
+    and a cluster block would hold more than 128 rows, the one launch
+    otherwise. Every call of 64 px and up is two passes both ways."""
+    fwd = gn.gn_plan(n, s, c, groups, itemsize, SMS)
+    assert fwd.tx * (16 // itemsize) == c and fwd.tx * fwd.ty <= 1024
+    assert (fwd.chunks - 1) * fwd.rows < s <= fwd.chunks * fwd.rows
+    carried = fwd.path == "two-pass"
+    bwd = gn.gn_bwd_plan(n, s, c, groups, itemsize, SMS, carried)
+    assert (bwd.chunks - 1) * bwd.rows < s <= bwd.chunks * bwd.rows
+    many = -(-s // gn.CLUSTER_BLOCKS) > 128
+    assert bwd.path == ("two-pass" if carried and many else "cluster")
+    if s >= 64 * 64:
+        assert fwd.path == bwd.path == "two-pass" or (c, s, itemsize) == (128, 4096, 2)
+
+
+def test_ncsnpp_shapes_are_the_1024_px_models():
+    """31 distinct (rows, channels); at 1024 px 16, 32 and 48 channels in
+    4, 8 and 12 groups; the 16-channel bf16 call in blocks of 2 x 128
+    threads, two passes."""
+    calls = ncsnpp_norm_calls()
+    assert len(calls) == 31
+    assert {(c, g) for _, s, c, g in calls if s == 1024 * 1024} == {(16, 4), (32, 8), (48, 12)}
+    plan = gn.gn_plan(8, 1024 * 1024, 16, 4, 2, SMS)
+    assert (plan.path, plan.tx, plan.ty) == ("two-pass", 2, 128)
